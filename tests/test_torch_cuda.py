@@ -1,5 +1,6 @@
-"""K1-K4 CUDA kernels against their plain versions on the card, and the
-transcode on the card against the same session on the CPU. Marked
+"""K1-K7 CUDA kernels against their plain versions on the card, and the
+transcode and the decode routes on the card against the same sessions on
+the CPU. Marked
 ``cuda``: they skip without a GPU (run them on one with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``)."""
 
@@ -12,7 +13,9 @@ from video_coding_tpu_torch.entropy import huffman_decode, huffman_encode
 from video_coding_tpu_torch.entropy.scan import _destuff_parts
 from video_coding_tpu_torch.model.header import Header, Parameters
 from video_coding_tpu_torch.ops import datapath
-from video_coding_tpu_torch.runtime.engine import (JpegEncoderSession,
+from video_coding_tpu_torch.runtime import engine
+from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
+                                                   JpegEncoderSession,
                                                    JpegTranscodeSession)
 
 pytestmark = pytest.mark.cuda
@@ -25,13 +28,13 @@ def gpu():
     return torch.device("cuda")
 
 
-def _streams(gpu, n=3, w=256, h=128):
+def _streams(gpu, n=3, w=256, h=128, ri=1):
     rng = np.random.default_rng(0)
     frames = [(rng.integers(0, 256, (h, w), dtype=np.uint8),
                rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
                rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
               for _ in range(n)]
-    enc = JpegEncoderSession(Parameters.c420(w, h, 80), 1, device=gpu)
+    enc = JpegEncoderSession(Parameters.c420(w, h, 80), ri, device=gpu)
     streams = enc.encode_device_batch(frames)
     bits = BitReader(streams[0])
     header = Header.decode(bits)
@@ -81,3 +84,127 @@ def test_transcode_on_card_matches_cpu(gpu):
     ref = JpegTranscodeSession(header, 70, 2, device="cpu") \
         .transcode_batch(payloads)
     assert outs == ref
+
+
+class _Spy:
+    """Stands in for a kernel wrapper in its module: keeps every call's
+    arguments and result, and passes attribute reads and writes (the
+    launch count) through to the wrapper."""
+
+    def __init__(self, fn):
+        object.__setattr__(self, "fn", fn)
+        object.__setattr__(self, "calls", [])
+
+    def __call__(self, *a, **k):
+        out = self.fn(*a, **k)
+        self.calls.append((a, k, out))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.fn, name, value)
+
+
+# route → (restart interval of the source, session keywords, the wrapper
+# the route must launch, frames a call)
+ROUTES = {
+    "A indexed, K1 with hooks": (0, {}, "decode_flat", 3),
+    "A indexed, K7 with hooks": (0, {"decode_gather": "dma"},
+                                 "decode_flat_staged", 3),
+    "B long segments, K6": (16, {}, "decode_segments_streamed", 3),
+    "C padded single frame, K5": (1, {"device_huffman": "pallas"},
+                                  "decode_segments", 1),
+    "D flat batch, K7": (1, {"decode_gather": "dma"}, "decode_flat_staged",
+                         3),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_decode_routes_on_card(gpu, monkeypatch, route):
+    """Each route launches its kernel, the kernel equals its plain version
+    on the arguments the session gave it, and the planes equal the same
+    session's on the CPU."""
+    ri, kw, name, n = ROUTES[route]
+    header, payloads = _streams(gpu, ri=ri)
+    payloads = payloads[:n]
+    if name == "decode_segments_streamed":
+        # 24 lanes of 96 blocks: the shape rule keeps K6 for more and longer
+        monkeypatch.setattr(engine, "auto_strategy",
+                            lambda S, L, B: "streamed")
+    wrapper = getattr(huffman_decode, name)
+    spy = _Spy(wrapper)
+    monkeypatch.setattr(huffman_decode, name, spy)
+    before = wrapper.launches
+    got = JpegDecoderSession(header, device=gpu, **kw) \
+        .decode_device_batch_stacked(payloads)
+    assert wrapper.launches == before + 1 and len(spy.calls) == 1
+    a, k, out = spy.calls[0]
+    assert torch.equal(out, getattr(huffman_decode, name + "_plain")(*a, **k))
+    if "hooks" in route:
+        assert k["init_bitpos"] is not None and k["init_dc"] is not None
+    ref = JpegDecoderSession(header, device="cpu", **kw) \
+        .decode_device_batch_stacked(payloads)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+def _tables(gpu):
+    header, _ = _streams(gpu, n=1)
+    dec = JpegDecoderSession(header, device=gpu)
+    st = dec.state
+    return dec, (st.lo, st.hi, st.offset, st.values)
+
+
+@pytest.mark.parametrize("kind,L", [("K5", 64), ("K5", 131), ("K5", 2048),
+                                    ("K6", 64), ("K6", 130), ("K6", 2048)])
+def test_padded_kernels_on_corrupt_rows(gpu, kind, L):
+    """Random rows without guard bytes (reads past the row), at row lengths
+    with and without tile padding of the window array, staged through
+    shared memory (K5, L % 4 == 0 and short) and not."""
+    dec, tabs = _tables(gpu)
+    rng = np.random.default_rng(L)
+    S, B = 300, 30
+    rows = rng.integers(0, 255, (S, L)).astype(np.uint8)
+    rows[::3, L // 3:] = 0
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    sched = torch.from_numpy(np.resize(dec.comp_idx[:6], B)).to(gpu)
+    args = (torch.from_numpy(rows).to(gpu), torch.from_numpy(segb).to(gpu),
+            sched, *tabs)
+    kw = dict(blocks_per_segment=B, n_components=3)
+    fn, plain = {
+        "K5": (huffman_decode.decode_segments,
+               huffman_decode.decode_segments_plain),
+        "K6": (huffman_decode.decode_segments_streamed,
+               huffman_decode.decode_segments_streamed_plain)}[kind]
+    assert torch.equal(fn(*args, **kw), plain(*args, **kw))
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_flat_kernels_on_corrupt_lanes(gpu, staged):
+    """Random bytes, start bits and predictors; lanes of up to 700 bytes
+    against a staging bucket of 64, so K7 loads in several waves."""
+    dec, tabs = _tables(gpu)
+    rng = np.random.default_rng(5)
+    S, B = 500, 24
+    lens = rng.integers(0, 700, S).astype(np.int32)
+    starts = rng.integers(0, 4000, S).astype(np.int32)
+    flat = rng.integers(0, 255, 4800).astype(np.uint8)
+    flat[4700:] = 0
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    bp0 = rng.integers(0, 64, S).astype(np.int32)
+    dc0 = rng.integers(-40000, 40000, (S, 3)).astype(np.int32)
+    sched = torch.from_numpy(np.resize(dec.comp_idx[:6], B)).to(gpu)
+    up = [torch.from_numpy(a).to(gpu)
+          for a in (flat, starts, lens, segb, bp0, dc0)]
+    args = (*up[:4], sched, *tabs)
+    kw = dict(blocks_per_segment=B, n_components=3, init_bitpos=up[4],
+              init_dc=up[5])
+    k1 = huffman_decode.decode_flat(*args, **kw)
+    assert torch.equal(k1, huffman_decode.decode_flat_plain(*args, **kw))
+    if staged:
+        k7 = huffman_decode.decode_flat_staged(*args, L=64, **kw)
+        assert torch.equal(k7, k1)
+        assert torch.equal(k7, huffman_decode.decode_flat_staged_plain(
+            *args, L=64, **kw))

@@ -1,7 +1,11 @@
-"""Port K1 (plain version, CPU) against the reference lanes-major Pallas
-Huffman decode kernel (decode_flat_pallas_t) in interpret mode, on
-64x48 restart-interval-1 streams from the reference model encoder and on
-a corrupt/truncated stream. Tolerance: exact equality."""
+"""The port's Huffman decode kernels (plain versions, CPU) against the
+reference Pallas kernels in interpret mode: K1 with and without its
+start-state hooks (decode_flat_pallas_t), K5 (decode_segments_pallas),
+K6 (decode_segments_pallas_bs) and K7 (decode_flat_pallas_dma), on small
+streams from the reference model encoder and on corrupt inputs
+(truncated segments, random bytes, rows without guard bytes) that reach
+the reads past a lane's end and the saturation. Tolerance: exact
+equality."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -77,3 +81,233 @@ def test_decode_flat_rejects_bad_inputs():
             torch.zeros(6, dtype=torch.int32), tab, tab, tab,
             torch.zeros(128, dtype=torch.int32), blocks_per_segment=6,
             n_components=3)
+
+
+# --- K1 with start-state hooks, K7 ------------------------------------------
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _indexed_inputs(sub: str, w: int, h: int, q: int, seed: int):
+    """Virtual segments of a restart-free stream, as the indexed route
+    cuts them: lane arrays with the start bit and DC predictors."""
+    stream = encode(sub, synth_frame(sub, w, h, seed), q, 0)
+    header, payload = header_payload(stream)
+    dec = engine.JpegDecoderSession(header)
+    flat, lens64 = jscan.destuff_flat(payload)
+    assert len(lens64) == 1
+    stride = dec._index_stride()
+    bo, dp = jscan._index_scan_py(flat, dec.comp_idx, stride, dec.tables)
+    R = len(bo)
+    s64 = bo >> 3
+    ends = np.append((bo[1:] + 7) >> 3, len(flat))
+    segb = np.full(R, stride, np.int32)
+    if dec.n_blocks % stride:
+        segb[-1] = dec.n_blocks % stride
+    lens = (ends - s64).astype(np.int32)
+    L = 1 << max(6, int(int(lens.max()) + 4 - 1).bit_length())
+    M = 1 << max(12, (len(flat) + 8 - 1).bit_length())
+    flat_p = np.zeros(M, np.uint8)
+    flat_p[:len(flat)] = flat
+    return dec, stride, (flat_p, s64.astype(np.int32), lens, segb,
+                         (bo - 8 * s64).astype(np.int32),
+                         dp[:, :3].astype(np.int32), L)
+
+
+def _flat_both(jfn, pfn, dec, B, flat_p, starts, lens, segb, bp0, dc0, L):
+    C = len(dec.components)
+    sched = dec.comp_idx[:B].astype(np.int32)
+    tabs = tpu_decode.range_tables(dec.tables)
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    t = lambda a: None if a is None else _t(a)  # noqa: E731
+    ref = None if jfn is None else np.asarray(jfn(
+        j(flat_p), j(starts), j(lens), j(segb), j(sched), *map(j, tabs),
+        L=L, blocks_per_segment=B, n_components=C, init_bitpos=j(bp0),
+        init_dc=j(dc0), interpret=True))
+    pkw = {"L": L} if pfn is huffman_decode.decode_flat_staged else {}
+    got = pfn(t(flat_p), t(starts), t(lens), t(segb), t(sched),
+              *map(t, tabs), blocks_per_segment=B, n_components=C,
+              init_bitpos=t(bp0), init_dc=t(dc0), **pkw).numpy()
+    return got, ref
+
+
+@pytest.mark.parametrize("sub,w,h,q", [("420", 128, 64, 90),
+                                       ("444", 96, 64, 50)])
+def test_decode_flat_hooks_match_pallas(sub, w, h, q):
+    dec, stride, (flat_p, starts, lens, segb, bp0, dc0, L) = \
+        _indexed_inputs(sub, w, h, q, seed=3)
+    assert bp0.any() and dc0.any()
+    got, ref = _flat_both(pallas_decode.decode_flat_pallas_t,
+                          huffman_decode.decode_flat, dec, stride, flat_p,
+                          starts, lens, segb, bp0, dc0, L)
+    np.testing.assert_array_equal(got, ref)
+    # the virtual segments, laid end to end, are the golden coefficients
+    golden = jscan.decode_scan(
+        [flat_p[:int(starts[-1] + lens[-1])].tobytes()], dec.comp_idx,
+        dec.n_blocks, dec.tables, use_native=False)
+    np.testing.assert_array_equal(
+        got.reshape(-1, 64)[:dec.n_blocks], golden)
+
+
+def test_decode_flat_hooks_corrupt_matches_pallas():
+    """Random bytes, lanes cut short, large start predictors: the zero
+    fill past the length and the int16 saturation are reached on both
+    sides alike."""
+    dec, stride, (flat_p, starts, lens, segb, bp0, dc0, L) = \
+        _indexed_inputs("420", 128, 64, 75, seed=4)
+    rng = np.random.default_rng(4)
+    bad = flat_p.copy()
+    n = int(starts[-1] + lens[-1])
+    bad[:n] = rng.integers(0, 255, n).astype(np.uint8)
+    dc_big = rng.integers(-40000, 40000, dc0.shape).astype(np.int32)
+    got, ref = _flat_both(pallas_decode.decode_flat_pallas_t,
+                          huffman_decode.decode_flat, dec, stride, bad,
+                          starts, (lens // 2).astype(np.int32), segb, bp0,
+                          dc_big, L)
+    np.testing.assert_array_equal(got, ref)
+    assert np.abs(got).max() == 32767 or got.min() == -32768
+
+
+@pytest.mark.parametrize("hooks", [False, True])
+def test_decode_flat_staged_matches_pallas_dma_and_k1(hooks):
+    if hooks:
+        dec, B, (flat_p, starts, lens, segb, bp0, dc0, L) = \
+            _indexed_inputs("420", 128, 64, 75, seed=6)
+    else:
+        dec, (flat_p, starts, lens, segb, _inv, L, _M) = _lane_inputs(
+            "420", 75, seed=6)
+        B, bp0, dc0 = dec.blocks_per_segment, None, None
+    assert (starts & 15).any()        # lanes start inside a 16-byte row
+    got, ref = _flat_both(pallas_decode.decode_flat_pallas_dma,
+                          huffman_decode.decode_flat_staged, dec, B, flat_p,
+                          starts, lens, segb, bp0, dc0, L)
+    np.testing.assert_array_equal(got, ref)
+    k1, _ = _flat_both(None, huffman_decode.decode_flat, dec, B, flat_p,
+                       starts, lens, segb, bp0, dc0, L)
+    np.testing.assert_array_equal(got, k1)
+    assert np.abs(got).sum() > 0
+
+
+def test_decode_flat_staged_corrupt_matches_pallas_dma():
+    dec, (flat_p, starts, lens, segb, _inv, L, _M) = _lane_inputs(
+        "420", 75, seed=12)
+    rng = np.random.default_rng(12)
+    bad = rng.integers(0, 255, flat_p.size).astype(np.uint8)
+    cut = (lens // 2).astype(np.int32)
+    got, ref = _flat_both(pallas_decode.decode_flat_pallas_dma,
+                          huffman_decode.decode_flat_staged, dec,
+                          dec.blocks_per_segment, bad, starts, cut, segb,
+                          None, None, L)
+    np.testing.assert_array_equal(got, ref)
+
+
+# --- K5 and K6 on padded lane matrices --------------------------------------
+
+def _segment_inputs(sub: str, w: int, h: int, q: int, ri: int, seed: int):
+    stream = encode(sub, synth_frame(sub, w, h, seed), q, ri)
+    header, payload = header_payload(stream)
+    dec = engine.JpegDecoderSession(header)
+    flat, lens64 = jscan.destuff_flat(payload)
+    segb = dec._expected_seg_blocks(len(lens64))
+    lanebuf, _st, _lens, segb, _inv, L, _M = dec._padded_lane_inputs(
+        flat, lens64, segb)
+    return dec, lanebuf.reshape(-1, L), segb
+
+
+def _segments_both(kind: str, dec, segbytes, segb):
+    B = dec.blocks_per_segment
+    C = len(dec.components)
+    sched = dec.comp_idx[:B].astype(np.int32)
+    tabs = tpu_decode.range_tables(dec.tables)
+    kw = dict(blocks_per_segment=B, n_components=C)
+    if kind == "K5":
+        ref = pallas_decode.decode_segments_pallas(
+            jnp.asarray(segbytes), jnp.asarray(segb), jnp.asarray(sched),
+            *map(jnp.asarray, tabs), interpret=True, **kw)
+        pfn = huffman_decode.decode_segments
+    else:
+        ref = pallas_decode.decode_segments_pallas_bs(
+            jnp.asarray(segbytes), jnp.asarray(segb),
+            *map(jnp.asarray, tabs), comp_sched_t=tuple(map(int, sched)),
+            win=min(pallas_decode.BS_WIN, B), interpret=True, **kw)
+        pfn = huffman_decode.decode_segments_streamed
+    got = pfn(_t(segbytes), _t(segb), _t(sched), *map(_t, tabs), **kw)
+    return got.numpy(), np.asarray(ref)
+
+
+@pytest.mark.parametrize("sub,q,ri", [("420", 90, 1), ("422", 50, 2)])
+def test_decode_segments_matches_pallas(sub, q, ri):
+    dec, segbytes, segb = _segment_inputs(sub, 64, 48, q, ri, seed=7)
+    got, ref = _segments_both("K5", dec, segbytes, segb)
+    np.testing.assert_array_equal(got, ref)
+    assert np.abs(got).sum() > 0
+
+
+# ri=0: one segment of 36 blocks, two output windows of 18; ri=5: segments
+# of 30 blocks in two windows and a last short segment of 12
+@pytest.mark.parametrize("sub,w,h,q,ri", [("420", 48, 32, 90, 0),
+                                          ("420", 64, 48, 50, 5)])
+def test_decode_segments_streamed_matches_pallas(sub, w, h, q, ri):
+    dec, segbytes, segb = _segment_inputs(sub, w, h, q, ri, seed=8)
+    assert dec.blocks_per_segment > pallas_decode.BS_WIN
+    if ri:
+        assert segb.min() < dec.blocks_per_segment
+    got, ref = _segments_both("K6", dec, segbytes, segb)
+    np.testing.assert_array_equal(got, ref)
+    assert np.abs(got).sum() > 0
+
+
+# Row lengths with and without tile padding of the window array: past the
+# row K5/K6 read zero windows (L=64), or the last real window again when
+# the window count is already a tile multiple (K5: L-3 = 128; K6:
+# (L-2)//2 = 64) — rows of random bytes without guard bytes tell the two
+# apart. (The symbol caps cannot be reached by any input: every symbol
+# moves a block forward, so a block takes at most 64.)
+@pytest.mark.parametrize("kind,L", [("K5", 64), ("K5", 131), ("K6", 64),
+                                    ("K6", 130)])
+def test_decode_segments_corrupt_rows_match_pallas(kind, L):
+    dec, _segbytes, _segb = _segment_inputs("420", 64, 48, 75, 5, seed=9)
+    rng = np.random.default_rng(L)
+    S = 5
+    rows = rng.integers(0, 255, (S, L)).astype(np.uint8)
+    rows[1, L // 3:] = 0                      # a truncated segment
+    rows[2] = np.where(rng.random(L) < .5, 0xFE, rows[2])  # long codes
+    segb = np.array([30, 30, 30, 12, 0], np.int32)
+    got, ref = _segments_both(kind, dec, rows, segb)
+    np.testing.assert_array_equal(got, ref)
+    assert not got[4].any() and not got[3, 12:].any()
+
+
+def test_saturation_differs_between_k1_and_k5():
+    """The same padded rows through K1 (saturating) and K5 (not): a DC
+    predictor driven past int16 is where they part."""
+    dec, _segbytes, _segb = _segment_inputs("420", 64, 48, 75, 1, seed=10)
+    B, C = dec.blocks_per_segment, len(dec.components)
+    # DC category 11 + eleven 1 bits (+2047), then EOB, block after block,
+    # in one segment of many luma blocks
+    def code(lut, value):
+        idx = next(i for i in range(1 << lut.max_bits)
+                   if lut.lengths[i] and lut.data[i] == value)
+        n = int(lut.lengths[idx])
+        return format(idx >> (lut.max_bits - n), f"0{n}b")
+
+    luma = dec.components[0]
+    nblk = 20
+    bits = (code(luma.dc_tab, 11) + "1" * 11 + code(luma.ac_tab, 0)) * nblk
+    bits += "1" * (-len(bits) % 8)
+    data = np.frombuffer(int(bits, 2).to_bytes(len(bits) // 8, "big"),
+                         np.uint8)
+    L = 1 << (len(data) + 4 - 1).bit_length()
+    rows = np.zeros((1, L), np.uint8)
+    rows[0, :len(data)] = data
+    tabs = list(map(_t, tpu_decode.range_tables(dec.tables)))
+    sched = torch.zeros(nblk, dtype=torch.int32)
+    kw = dict(blocks_per_segment=nblk, n_components=C)
+    segb = torch.tensor([nblk], dtype=torch.int32)
+    k5 = huffman_decode.decode_segments(_t(rows), segb, sched, *tabs, **kw)
+    k1 = huffman_decode.decode_segments_lanes(_t(rows), segb, sched, *tabs,
+                                              **kw)
+    assert int(k5[0, -1, 0]) == 2047 * nblk > 32767
+    assert int(k1[0, -1, 0]) == 32767
+    assert torch.equal(k1.clamp(-32768, 32767), k5.clamp(-32768, 32767))

@@ -17,7 +17,7 @@ _CHILD = textwrap.dedent("""
     from video_coding_tpu_torch.common.bitstream import BitReader
     from video_coding_tpu_torch.model.header import Header, Parameters
     from video_coding_tpu_torch.runtime.engine import (
-        JpegEncoderSession, JpegTranscodeSession)
+        JpegDecoderSession, JpegEncoderSession, JpegTranscodeSession)
 
     rng = np.random.default_rng(0)
     planes = (rng.integers(0, 256, (48, 64), dtype=np.uint8),
@@ -31,6 +31,23 @@ _CHILD = textwrap.dedent("""
                              device="cpu")
     out = t.transcode(stream[bits.bit_pos >> 3:])
     assert out[:2] == b"\\xff\\xd8" and out[-2:] == b"\\xff\\xd9"
+    # the decode service on a restart-free stream (index scan + K1 with
+    # hooks), then K7's, K5's and the plain strategy's routes
+    yy, xx = np.mgrid[0:96, 0:128]
+    big = ((xx + 2 * yy).astype(np.uint8), (xx[::2, ::2] // 2 + 90)
+           .astype(np.uint8), (yy[::2, ::2] + 60).astype(np.uint8))
+    free = JpegEncoderSession(Parameters.c420(128, 96, 80), 0,
+                              device="cpu").encode_device_batch([big])[0]
+    bits = BitReader(free)
+    fh = Header.decode(bits)
+    fp = free[bits.bit_pos >> 3:]
+    ref = JpegDecoderSession(fh, device="cpu").decode_device(fp)
+    for kw in ({"decode_gather": "dma"}, {"device_huffman": "pallas"},
+               {"device_huffman": "range"}):
+        dec = JpegDecoderSession(fh, device="cpu", **kw)
+        got = dec.decode_device_batch([fp, fp])[1]
+        assert all((a == b).all() for a, b in zip(dec._to_frame(got), ref))
+    assert ref[0].shape == (96, 128)
     leaked = sorted(m for m in sys.modules
                     if m == "video_coding_tpu"
                     or m.startswith("video_coding_tpu."))

@@ -6,7 +6,11 @@
 //   segment of the flat destuffed buffer (bytes past the segment's length
 //   read as zero) into (S, B, 64) int32 zigzag coefficients — DC
 //   prediction per component, values saturated to int16, a step cap so a
-//   corrupt stream terminates.
+//   corrupt stream terminates. With the start-state hooks a lane begins at
+//   bit init_bitpos[s] of its byte range with the DC predictors
+//   init_dc[s]: the virtual segments of a restart-free stream, whose last
+//   byte may hold bits of the next lane — the block count ends such a
+//   lane, not its length.
 //
 // What bounds it on an H100: it is a serial state machine per lane
 //   (code match → magnitude → DC/AC update), ~65 dependent steps per
@@ -23,12 +27,19 @@
 //   zeroes the output). Enough lanes are in flight per SM to hide the
 //   dependent-load latency of the byte refills.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "huffman_decode_common.cuh"
 
 namespace {
 
-constexpr int kMaxComponents = 4;
+using namespace vct;
+
+struct GlobalFetch {
+  const uint8_t* src;
+  int len;
+  __device__ uint64_t operator()(int p) const {
+    return p < len ? (uint64_t)src[p] : 0ull;
+  }
+};
 
 __global__ void huffman_decode_kernel(
     const uint8_t* __restrict__ flat, const int32_t* __restrict__ starts,
@@ -37,111 +48,34 @@ __global__ void huffman_decode_kernel(
     const int32_t* __restrict__ lo_g, const int32_t* __restrict__ hi_g,
     const int32_t* __restrict__ off_g, int T,
     const int32_t* __restrict__ values_g, int V, int max_steps,
-    int32_t* __restrict__ out) {
+    const int32_t* __restrict__ init_bitpos,
+    const int32_t* __restrict__ init_dc, int32_t* __restrict__ out) {
   extern __shared__ int32_t smem[];
-  int32_t* lo = smem;
-  int32_t* hi = lo + T * 16;
-  int32_t* off = hi + T * 16;
-  int32_t* values = off + T * 16;
-  for (int i = threadIdx.x; i < T * 16; i += blockDim.x) {
-    lo[i] = lo_g[i];
-    hi[i] = hi_g[i];
-    off[i] = off_g[i];
-  }
-  for (int i = threadIdx.x; i < V; i += blockDim.x) values[i] = values_g[i];
-  __syncthreads();
+  const Tables tb = stage_tables(smem, lo_g, hi_g, off_g, T, values_g, V);
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= S) return;
-  const uint8_t* src = flat + starts[lane];
-  const int len = lens[lane];
-  const int nblk = min(seg_blocks[lane], B);
-  int32_t* dst = out + (size_t)lane * B * 64;
-
-  // MSB-aligned bit buffer: the next `nb` stream bits are buf's top bits
-  uint64_t buf = 0;
-  int nb = 0;
-  int p = 0;  // next byte to load
-  int dc[kMaxComponents] = {0, 0, 0, 0};
-  int blk = 0, cof = 0, steps = 0;
-  bool in_ac = false;
-
-  while (blk < nblk && steps < max_steps) {
-    ++steps;
-    while (nb <= 56) {
-      const uint64_t byte = (p < len) ? (uint64_t)src[p] : 0ull;
-      ++p;
-      buf |= byte << (56 - nb);
-      nb += 8;
-    }
-    const int w16 = (int)(buf >> 48);
-    // schedule entries past the tables clamp to the last component (the
-    // sessions never produce them)
-    const int comp = min(max(__ldg(comp_sched + blk), 0), C - 1);
-    const int t = comp + (in_ac ? C : 0);
-    int code_len = 0, lo_sel = 0, off_sel = 0;
-#pragma unroll
-    for (int l = 0; l < 16; ++l) {
-      if (w16 >= lo[t * 16 + l] && w16 < hi[t * 16 + l]) {
-        code_len += l + 1;
-        lo_sel += lo[t * 16 + l];
-        off_sel += off[t * 16 + l];
-      }
-    }
-    int data = 0;
-    if (code_len > 0) {
-      int idx = off_sel + ((w16 - lo_sel) >> (16 - min(code_len, 16)));
-      idx = min(max(idx, 0), V - 1);
-      data = values[idx] & 0xFF;
-    }
-    const int run = in_ac ? (data >> 4) & 0xF : 0;
-    // baseline size categories are <= 11; 16 bounds the 32-bit window
-    const int cat = min(in_ac ? (data & 0xF) : data, 16);
-    int val = 0;
-    if (cat > 0) {
-      const int code = (int)((buf << code_len) >> (64 - cat));
-      val = (code & (1 << (cat - 1))) ? code : code - (1 << cat) + 1;
-    }
-    const int used = code_len + cat;
-    buf = used ? (buf << used) : buf;
-    nb -= used;
-
-    if (!in_ac) {
-      dc[comp] += val;
-      const int sat = min(max(dc[comp], -32768), 32767);
-      if (sat) dst[blk * 64] = sat;
-      in_ac = true;
-      cof = 1;
-    } else if (run == 0 && cat == 0) {  // EOB
-      ++blk;
-      in_ac = false;
-      cof = 0;
-    } else {
-      const int nc = cof + run;
-      if (nc < 64 && val) dst[blk * 64 + nc] = min(max(val, -32768), 32767);
-      if (nc + 1 >= 64) {
-        ++blk;
-        in_ac = false;
-        cof = 0;
-      } else {
-        cof = nc + 1;
-      }
-    }
-  }
+  GlobalFetch fetch{flat + starts[lane], lens[lane]};
+  decode_lane_stream(fetch, tb, comp_sched, min(seg_blocks[lane], B), C,
+                     max_steps, init_bitpos ? init_bitpos[lane] : 0,
+                     init_dc ? init_dc + (size_t)lane * C : nullptr,
+                     out + (size_t)lane * B * 64);
 }
 
 }  // namespace
 
+// init_bitpos (S,) and init_dc (S, C) may be null: no start-state hooks.
 extern "C" int vct_k1_huffman_decode(
     const uint8_t* flat, const int32_t* starts, const int32_t* lens,
     const int32_t* seg_blocks, int S, const int32_t* comp_sched, int B,
     int C, const int32_t* lo, const int32_t* hi, const int32_t* offset,
-    int T, const int32_t* values, int V, int max_steps, int32_t* out,
+    int T, const int32_t* values, int V, int max_steps,
+    const int32_t* init_bitpos, const int32_t* init_dc, int32_t* out,
     void* stream) {
   if (S <= 0) return (int)cudaGetLastError();
   const int threads = 128;
   const int blocks = (S + threads - 1) / threads;
-  const size_t smem = (size_t)(3 * T * 16 + V) * sizeof(int32_t);
+  const size_t smem = table_ints(T, V) * sizeof(int32_t);
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(huffman_decode_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -149,6 +83,6 @@ extern "C" int vct_k1_huffman_decode(
   }
   huffman_decode_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       flat, starts, lens, seg_blocks, S, comp_sched, B, C, lo, hi, offset,
-      T, values, V, max_steps, out);
+      T, values, V, max_steps, init_bitpos, init_dc, out);
   return (int)cudaGetLastError();
 }

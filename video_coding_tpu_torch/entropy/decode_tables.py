@@ -1,4 +1,5 @@
-"""Canonical-range Huffman decode tables for K1.
+"""Canonical-range Huffman decode tables for the decode kernels, and the
+rules that route a stream to one of them.
 
 Canonical Huffman codes of one length occupy one contiguous range of the
 16-bit peek window, and the ranges of different lengths are disjoint, so
@@ -47,3 +48,81 @@ def range_tables(tables: DecoderTables
     if flat:
         values[:n_flat] = np.concatenate(flat)
     return lo, hi, offset, values
+
+
+# --- strategy routing -------------------------------------------------------
+# The reference sizes its kernels' per-step state against an on-chip memory
+# budget and routes a stream by what fits. The port keeps the same integer
+# rules so the same stream takes the same strategy in both packages; on the
+# card they are routing thresholds only, not memory limits.
+
+_STATE_BUDGET = 8 << 20
+BS_LANES = 128
+BS_WIN = 16     # blocks per output window of the streamed decode
+
+
+def max_lane_chunk(L: int, blocks_per_segment: int) -> int:
+    """Lane chunk of the padded-matrix decode (K5) under the budget, or 0."""
+    LW = max(L - 3, 1)
+    LWp = -(-LW // 128) * 128
+    per_lane = 4 * (2 * LWp + 3 * blocks_per_segment * 64)
+    ch = _STATE_BUDGET // per_lane
+    if ch < 8:
+        return 0
+    return min(512, 1 << (int(ch).bit_length() - 1))
+
+
+def max_lanes_t(L: int, blocks_per_segment: int) -> int:
+    """Lane count (multiple of 128) of the segment-per-lane decode (K1)
+    under the budget, or 0 when a segment's whole coefficient block does
+    not fit: the long-segment regime of the streamed decode (K6)."""
+    NW = max((L - 2) // 2, 1)
+    NWp = -(-NW // 8) * 8
+    per_lane = 4 * (NWp + 2 * blocks_per_segment * 64)
+    lanes = _STATE_BUDGET // per_lane
+    if lanes < 128:
+        return 0
+    return min(1024, (lanes // 128) * 128)
+
+
+def max_win_bs(L: int) -> int:
+    """Output window (blocks) of the streamed decode (K6), or 0 when the
+    byte windows of BS_LANES lanes alone exceed the budget."""
+    NW = max((L - 2) // 2, 1)
+    NWp = -(-NW // 8) * 8
+    words_bytes = 4 * NWp * BS_LANES
+    win_bytes = 4 * BS_WIN * 64 * BS_LANES * 2
+    if words_bytes + win_bytes > _STATE_BUDGET:
+        return 0
+    return BS_WIN
+
+
+def _eligible(lanes: int, S: int) -> bool:
+    return lanes >= 128 and S >= 64
+
+
+def auto_strategy(S: int, L: int, blocks_per_segment: int) -> str:
+    """The ``auto`` route of S segments in an (S, L) lane matrix:
+    ``"pallas_t"`` (K1), ``"streamed"`` (K6) or ``"pallas"`` (K5), chosen
+    as the reference chooses among its kernels. Where the reference would
+    leave its kernels for a compiler-generated loop (too few or too long
+    lanes), the port stays on K5, which takes any shape."""
+    lanes = max_lanes_t(L, blocks_per_segment)
+    if _eligible(lanes, S):
+        return "pallas_t"
+    if lanes == 0 and max_win_bs(L) and _eligible(BS_LANES, S):
+        return "streamed"
+    return "pallas"
+
+
+def flat_words_route(S: int, L: int, blocks_per_segment: int,
+                     device_huffman: str) -> bool:
+    """Does a flat-buffer dispatch feed K1 (or K7) straight from the flat
+    buffer? Otherwise the (S, L) lane matrix is gathered on the device
+    and the padded-matrix strategy applies."""
+    if device_huffman not in ("auto", "pallas_t"):
+        return False
+    lanes = max_lanes_t(L + 48, blocks_per_segment)
+    if lanes == 0:
+        return False
+    return device_huffman == "pallas_t" or _eligible(lanes, S)

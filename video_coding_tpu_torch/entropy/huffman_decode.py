@@ -1,20 +1,36 @@
-"""K1: canonical-Huffman decode of restart segments, one segment per lane,
-with its plain PyTorch version beside it.
+"""The Huffman decode kernels K1, K5, K6 and K7, each with its plain
+PyTorch version beside it.
 
-Contract (the reference's ``decode_flat_pallas_t``): lane s decodes the
-bytes ``flat[starts[s] : starts[s] + lens[s]]`` (bytes past the length
-read as zero) into ``seg_blocks[s]`` blocks of 64 zigzag coefficients:
+All four run one automaton per lane — DC code + magnitude, then AC
+(run, size) codes + magnitudes until EOB or position 63 — against
+canonical range tables (``range_tables``; row t = comp for DC, C + comp
+for AC; values are (run<<4 | size) bytes), with DC differences
+accumulating per component, into (S, B, 64) int32 zigzag coefficients,
+zero where nothing was decoded. They differ in how a lane's bytes are
+given, what a peek past the lane's end reads, whether written values are
+saturated, and where the symbol cap sits:
 
-- codewords match against canonical range tables (``range_tables``; row
-  t = comp for DC, C + comp for AC), values are (run<<4 | size) bytes;
-- DC differences accumulate per component from zero;
-- decoded values are saturated to int16;
-- a step cap of 2·((65·B + 64)//2 + 2) symbols bounds the work of a
-  corrupt stream (a valid segment needs at most 64 symbols a block).
+``decode_flat`` (K1, the reference's ``decode_flat_pallas_t``)
+    lane s is ``flat[starts[s] : starts[s] + lens[s]]``; bytes past the
+    length read as zero; values saturated to int16; a cap of
+    2·((65·B + 64)//2 + 2) symbols a lane. With the start-state hooks a
+    lane begins at bit ``init_bitpos[s]`` of its byte range with the DC
+    predictors ``init_dc[s]`` (the virtual segments of a restart-free
+    stream; the block count ends such a lane, not its length).
+``decode_flat_staged`` (K7, ``decode_flat_pallas_dma``)
+    K1's arguments and K1's result, bit for bit; the kernel copies each
+    lane's 16-byte rows into shared memory itself.
+``decode_segments`` (K5, ``decode_segments_pallas``)
+    lane s is row s of a padded (S, L) matrix; peeks read the reference's
+    byte-granular 32-bit windows with a clamped index; values not
+    saturated; K1's cap.
+``decode_segments_streamed`` (K6, ``decode_segments_pallas_bs``)
+    as K5 with 16-bit-stride windows, for long segments: whole blocks
+    are written out (blocks at or past ``seg_blocks[s]`` as zeros) and
+    the cap is 134 symbols a block.
 
-Output: (S, B, 64) int32, zero where nothing was decoded. The wrapper
-runs the plain version for CPU tensors and launches the CUDA kernel for
-CUDA tensors (or raises).
+Every wrapper runs its plain version for CPU tensors and launches its
+CUDA kernel for CUDA tensors (or raises).
 """
 
 from __future__ import annotations
@@ -24,6 +40,9 @@ import torch
 from .. import kernels
 
 MAX_COMPONENTS = 4
+# K6's symbol cap a block: the reference's (66 + 64)//2 + 2 iterations of
+# two symbols
+BLOCK_STEPS = 2 * ((66 + 64) // 2 + 2)
 
 
 def max_steps(blocks_per_segment: int) -> int:
@@ -32,32 +51,69 @@ def max_steps(blocks_per_segment: int) -> int:
     return 2 * ((blocks_per_segment * 65 + 64) // 2 + 2)
 
 
-def _peek32(flat: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
-            bitpos: torch.Tensor) -> torch.Tensor:
-    """The 32 stream bits at ``bitpos`` of every lane (int64), reading
-    bytes past the lane's length as zero."""
-    byte0 = bitpos >> 3
-    word = torch.zeros_like(bitpos)
+# --- plain versions ---------------------------------------------------------
+
+def _stream_peek(flat, starts, lens):
+    """peek16(bitpos) over lanes of a flat buffer: the 16 stream bits at
+    ``bitpos`` of every lane (int64), bytes past the lane's length read
+    as zero."""
+    starts = starts.to(torch.int64)
+    lens = lens.to(torch.int64)
     last = flat.numel() - 1
-    for k in range(5):
-        pos = byte0 + k
-        idx = (starts + pos).clamp(0, max(last, 0))
-        b = flat[idx].to(torch.int64) if last >= 0 else torch.zeros_like(pos)
-        word = (word << 8) | torch.where(pos < lens, b, torch.zeros_like(b))
-    return (word >> (8 - (bitpos & 7))) & 0xFFFFFFFF
+
+    def peek16(bitpos):
+        byte0 = bitpos >> 3
+        word = torch.zeros_like(bitpos)
+        for k in range(3):
+            pos = byte0 + k
+            if last >= 0:
+                b = flat[(starts + pos).clamp(0, last)].to(torch.int64)
+                b = torch.where(pos < lens, b, torch.zeros_like(b))
+            else:
+                b = torch.zeros_like(pos)
+            word = (word << 8) | b
+        return (word >> (8 - (bitpos & 7))) & 0xFFFF
+
+    return peek16
 
 
-def decode_flat_plain(flat, starts, lens, seg_blocks, comp_sched, lo, hi,
-                      offset, values, *, blocks_per_segment: int,
-                      n_components: int) -> torch.Tensor:
-    """Plain PyTorch K1: the symbol loop vectorized over lanes."""
-    dev = starts.device
-    S = starts.shape[0]
+def _window_peek(segbytes, unit: int, tile: int):
+    """peek16(bitpos) over the rows of a padded (S, L) matrix, as the
+    reference kernels read them: one big-endian 32-bit window per
+    ``unit`` bytes, the window array zero-padded to a multiple of
+    ``tile``, and 16 bits taken from window clamp(bitpos // (8·unit), 0,
+    padded count - 1) at offset bitpos % (8·unit)."""
+    S, L = segbytes.shape
+    seg = segbytes.to(torch.int64)
+    if unit == 1:
+        n = L - 3
+        parts = [seg[:, k:k + n] for k in range(4)]
+    else:
+        n = max((L - 2) // 2, 1)
+        parts = [seg[:, k:k + 2 * n - 1:2] for k in range(4)]
+    words = (parts[0] << 24) | (parts[1] << 16) | (parts[2] << 8) | parts[3]
+    n_pad = -(-n // tile) * tile
+    words = torch.nn.functional.pad(words, (0, n_pad - n))
+    lane = torch.arange(S, device=segbytes.device)
+    ushift = 3 if unit == 1 else 4
+
+    def peek16(bitpos):
+        w32 = words[lane, (bitpos >> ushift).clamp(0, n_pad - 1)]
+        return (w32 >> (16 - (bitpos & (8 * unit - 1)))) & 0xFFFF
+
+    return peek16
+
+
+def _symbol_loop_plain(peek16, seg_blocks, comp_sched, lo, hi, offset,
+                       values, *, blocks_per_segment: int, n_components: int,
+                       saturate: bool, total_cap, block_cap,
+                       init_bitpos=None, init_dc=None) -> torch.Tensor:
+    """The symbol loop of all four kernels, vectorized over lanes."""
+    dev = seg_blocks.device
+    S = seg_blocks.shape[0]
     B = blocks_per_segment
     C = n_components
     V = values.shape[0]
-    starts = starts.to(torch.int64)
-    lens = lens.to(torch.int64)
     nblk = seg_blocks.to(torch.int64).clamp(max=B)
     sched = comp_sched.to(torch.int64)
     lo, hi, off = (x.to(torch.int64) for x in (lo, hi, offset))
@@ -66,25 +122,28 @@ def decode_flat_plain(flat, starts, lens, seg_blocks, comp_sched, lo, hi,
     lane = torch.arange(S, device=dev, dtype=torch.int64)
     zero = torch.zeros(S, device=dev, dtype=torch.int64)
 
-    bitpos = zero.clone()
+    bitpos = zero.clone() if init_bitpos is None \
+        else init_bitpos.to(torch.int64).clone()
+    dc = torch.zeros((S, C), device=dev, dtype=torch.int64) \
+        if init_dc is None else init_dc.to(torch.int64).clone()
     blk = zero.clone()
     cof = zero.clone()
+    bsteps = zero.clone()
     in_ac = torch.zeros(S, device=dev, dtype=torch.bool)
-    dc = torch.zeros((S, C), device=dev, dtype=torch.int64)
     # one extra slot absorbs the writes of lanes that write nothing
     out = torch.zeros(S * B * 64 + 1, device=dev, dtype=torch.int32)
     sink = S * B * 64
-    cap = max_steps(B)
-    for step in range(cap):
+    step = 0
+    while total_cap is None or step < total_cap:
         active = blk < nblk
         if step % 16 == 0 and not bool(active.any()):
             break
+        step += 1
         # schedule entries past the tables clamp to the last component, as
-        # in the kernel (the sessions never produce them)
+        # in the kernels (the sessions never produce them)
         comp = sched[blk.clamp(0, B - 1)].clamp(0, C - 1)
         t = comp + torch.where(in_ac, C, 0)
-        w32 = _peek32(flat, starts, lens, bitpos)
-        w16 = w32 >> 16
+        w16 = peek16(bitpos)
         lo_t, hi_t, off_t = lo[t], hi[t], off[t]
         valid = (w16[:, None] >= lo_t) & (w16[:, None] < hi_t)
         code_len = torch.where(valid, lens16, 0).sum(1)
@@ -95,7 +154,7 @@ def decode_flat_plain(flat, starts, lens, seg_blocks, comp_sched, lo, hi,
         data = torch.where(code_len > 0, values[idx] & 0xFF, 0)
         run = torch.where(in_ac, (data >> 4) & 0xF, 0)
         cat = torch.where(in_ac, data & 0xF, data).clamp(max=16)
-        code = ((w32 << code_len) & 0xFFFFFFFF) >> (32 - cat.clamp(min=1))
+        code = peek16(bitpos + code_len) >> (16 - cat.clamp(min=1))
         one = torch.ones_like(cat)
         neg = (code & (one << (cat - 1).clamp(min=0))) == 0
         val = torch.where(neg, code - (one << cat) + 1, code)
@@ -112,65 +171,293 @@ def decode_flat_plain(flat, starts, lens, seg_blocks, comp_sched, lo, hi,
         write_ac = in_ac & ~is_eob & active & (nc < 64)
         do_write = is_dc | write_ac
         wcof = torch.where(is_dc, 0, nc.clamp(0, 63))
-        wval = torch.where(is_dc, dc_val, val).clamp(-32768, 32767)
+        wval = torch.where(is_dc, dc_val, val)
+        if saturate:
+            wval = wval.clamp(-32768, 32767)
         widx = torch.where(do_write,
                            (lane * B + blk.clamp(0, B - 1)) * 64 + wcof, sink)
         out[widx] = wval.to(torch.int32)
 
         cof_after = torch.where(in_ac, torch.where(is_eob, 64, nc + 1), 1)
         done = in_ac & (is_eob | (cof_after >= 64))
+        if block_cap is not None:
+            # a block that reaches its cap is left as it stands
+            bsteps = bsteps + 1
+            done = done | (bsteps >= block_cap)
+            bsteps = torch.where(done, 0, bsteps)
         blk = torch.where(done & active, blk + 1, blk)
         in_ac = torch.where(done, False, torch.where(in_ac, in_ac, True))
         cof = torch.where(done, 0, cof_after)
     return out[:sink].reshape(S, B, 64)
 
 
+def _staged_view(starts, lens, init_bitpos):
+    """K7's view of a lane: it starts at its 16-byte row, the slack before
+    the segment rides the bit cursor and the effective length."""
+    slack = starts & 15
+    bitpos = 8 * slack if init_bitpos is None else 8 * slack + init_bitpos
+    return starts - slack, lens + slack, bitpos
+
+
+def decode_flat_plain(flat, starts, lens, seg_blocks, comp_sched, lo, hi,
+                      offset, values, *, blocks_per_segment: int,
+                      n_components: int, init_bitpos=None,
+                      init_dc=None) -> torch.Tensor:
+    """Plain PyTorch K1."""
+    return _symbol_loop_plain(
+        _stream_peek(flat, starts, lens), seg_blocks, comp_sched, lo, hi,
+        offset, values, blocks_per_segment=blocks_per_segment,
+        n_components=n_components, saturate=True,
+        total_cap=max_steps(blocks_per_segment), block_cap=None,
+        init_bitpos=init_bitpos, init_dc=init_dc)
+
+
+def decode_flat_staged_plain(flat, starts, lens, seg_blocks, comp_sched, lo,
+                             hi, offset, values, *, L: int,
+                             blocks_per_segment: int, n_components: int,
+                             init_bitpos=None, init_dc=None) -> torch.Tensor:
+    """Plain PyTorch K7: K1's loop on the row-aligned view of each lane
+    (``L`` only sizes the kernel's staging buffer)."""
+    row_starts, lens_eff, bitpos = _staged_view(starts, lens, init_bitpos)
+    return decode_flat_plain(
+        flat, row_starts, lens_eff, seg_blocks, comp_sched, lo, hi, offset,
+        values, blocks_per_segment=blocks_per_segment,
+        n_components=n_components, init_bitpos=bitpos, init_dc=init_dc)
+
+
+def decode_segments_plain(segbytes, seg_blocks, comp_sched, lo, hi, offset,
+                          values, *, blocks_per_segment: int,
+                          n_components: int) -> torch.Tensor:
+    """Plain PyTorch K5."""
+    return _symbol_loop_plain(
+        _window_peek(segbytes, 1, 128), seg_blocks, comp_sched, lo, hi,
+        offset, values, blocks_per_segment=blocks_per_segment,
+        n_components=n_components, saturate=False,
+        total_cap=max_steps(blocks_per_segment), block_cap=None)
+
+
+def decode_segments_streamed_plain(segbytes, seg_blocks, comp_sched, lo, hi,
+                                   offset, values, *, blocks_per_segment: int,
+                                   n_components: int) -> torch.Tensor:
+    """Plain PyTorch K6."""
+    return _symbol_loop_plain(
+        _window_peek(segbytes, 2, 8), seg_blocks, comp_sched, lo, hi,
+        offset, values, blocks_per_segment=blocks_per_segment,
+        n_components=n_components, saturate=False, total_cap=None,
+        block_cap=BLOCK_STEPS)
+
+
+# --- wrappers ---------------------------------------------------------------
+
+def _check(named, dev) -> None:
+    """``named``: (name, tensor, dtype, shape) rows; all must be contiguous
+    on ``dev``."""
+    for name, t, dtype, shape in named:
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _table_rows(comp_sched, lo, hi, offset, values, B: int, C: int):
+    if not 1 <= C <= MAX_COMPONENTS:
+        raise ValueError(f"n_components must be 1..{MAX_COMPONENTS}")
+    T = lo.shape[0]
+    if T != 2 * C:
+        raise ValueError(f"expected {2 * C} range tables, got {T}")
+    return [("comp_sched", comp_sched, torch.int32, (B,)),
+            ("lo", lo, torch.int32, (T, 16)),
+            ("hi", hi, torch.int32, (T, 16)),
+            ("offset", offset, torch.int32, (T, 16)),
+            ("values", values, torch.int32, (values.shape[0],))]
+
+
+def _check_flat(flat, starts, lens, seg_blocks, comp_sched, lo, hi, offset,
+                values, init_bitpos, init_dc, B: int, C: int) -> None:
+    S = starts.shape[0]
+    rows = [("flat", flat, torch.uint8, (flat.shape[0],)),
+            ("starts", starts, torch.int32, (S,)),
+            ("lens", lens, torch.int32, (S,)),
+            ("seg_blocks", seg_blocks, torch.int32, (S,))]
+    rows += _table_rows(comp_sched, lo, hi, offset, values, B, C)
+    if init_bitpos is not None:
+        rows.append(("init_bitpos", init_bitpos, torch.int32, (S,)))
+    if init_dc is not None:
+        rows.append(("init_dc", init_dc, torch.int32, (S, C)))
+    _check(rows, starts.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def decode_flat(flat: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
                 seg_blocks: torch.Tensor, comp_sched: torch.Tensor,
                 lo: torch.Tensor, hi: torch.Tensor, offset: torch.Tensor,
                 values: torch.Tensor, *, blocks_per_segment: int,
-                n_components: int) -> torch.Tensor:
+                n_components: int, init_bitpos: torch.Tensor | None = None,
+                init_dc: torch.Tensor | None = None) -> torch.Tensor:
     """K1: flat uint8 (M,), starts/lens/seg_blocks int32 (S,), comp_sched
-    int32 (B,), lo/hi/offset int32 (T, 16), values int32 (V,) →
-    (S, B, 64) int32 zigzag coefficients."""
+    int32 (B,), lo/hi/offset int32 (T, 16), values int32 (V,), optional
+    init_bitpos int32 (S,) and init_dc int32 (S, C) → (S, B, 64) int32
+    zigzag coefficients."""
     S = starts.shape[0]
     B = blocks_per_segment
     C = n_components
     dev = starts.device
-    if not 1 <= C <= MAX_COMPONENTS:
-        raise ValueError(f"n_components must be 1..{MAX_COMPONENTS}")
-    T = lo.shape[0]
-    for name, t, dtype, shape in (
-            ("flat", flat, torch.uint8, (flat.shape[0],)),
-            ("starts", starts, torch.int32, (S,)),
-            ("lens", lens, torch.int32, (S,)),
-            ("seg_blocks", seg_blocks, torch.int32, (S,)),
-            ("comp_sched", comp_sched, torch.int32, (B,)),
-            ("lo", lo, torch.int32, (T, 16)),
-            ("hi", hi, torch.int32, (T, 16)),
-            ("offset", offset, torch.int32, (T, 16)),
-            ("values", values, torch.int32, (values.shape[0],))):
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: must be contiguous on {dev}")
-    if T != 2 * C:
-        raise ValueError(f"expected {2 * C} range tables, got {T}")
+    _check_flat(flat, starts, lens, seg_blocks, comp_sched, lo, hi, offset,
+                values, init_bitpos, init_dc, B, C)
     if dev.type == "cpu":
         return decode_flat_plain(flat, starts, lens, seg_blocks, comp_sched,
                                  lo, hi, offset, values,
-                                 blocks_per_segment=B, n_components=C)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+                                 blocks_per_segment=B, n_components=C,
+                                 init_bitpos=init_bitpos, init_dc=init_dc)
     out = torch.zeros((S, B, 64), dtype=torch.int32, device=dev)
     kernels.launch("vct_k1_huffman_decode", flat.data_ptr(),
                    starts.data_ptr(), lens.data_ptr(), seg_blocks.data_ptr(),
                    S, comp_sched.data_ptr(), B, C, lo.data_ptr(),
-                   hi.data_ptr(), offset.data_ptr(), T, values.data_ptr(),
-                   values.shape[0], max_steps(B), out.data_ptr())
+                   hi.data_ptr(), offset.data_ptr(), lo.shape[0],
+                   values.data_ptr(), values.shape[0], max_steps(B),
+                   _ptr(init_bitpos), _ptr(init_dc), out.data_ptr())
     decode_flat.launches += 1
+    if init_bitpos is not None or init_dc is not None:
+        decode_flat.hook_launches += 1
     return out
 
 
 decode_flat.launches = 0
+decode_flat.hook_launches = 0   # those of ``launches`` with a start state
+
+
+def decode_flat_staged(flat: torch.Tensor, starts: torch.Tensor,
+                       lens: torch.Tensor, seg_blocks: torch.Tensor,
+                       comp_sched: torch.Tensor, lo: torch.Tensor,
+                       hi: torch.Tensor, offset: torch.Tensor,
+                       values: torch.Tensor, *, L: int,
+                       blocks_per_segment: int, n_components: int,
+                       init_bitpos: torch.Tensor | None = None,
+                       init_dc: torch.Tensor | None = None) -> torch.Tensor:
+    """K7: K1's arguments and result. ``flat`` must be zero-padded to a
+    multiple of 16 bytes; ``L`` is the batch's lane-length bucket (at
+    least the longest lane) and only sizes the kernel's staging buffer —
+    longer lanes load in further waves."""
+    S = starts.shape[0]
+    B = blocks_per_segment
+    C = n_components
+    dev = starts.device
+    _check_flat(flat, starts, lens, seg_blocks, comp_sched, lo, hi, offset,
+                values, init_bitpos, init_dc, B, C)
+    if flat.shape[0] % 16:
+        raise ValueError("flat: length must be a multiple of 16")
+    if dev.type == "cpu":
+        return decode_flat_staged_plain(
+            flat, starts, lens, seg_blocks, comp_sched, lo, hi, offset,
+            values, L=L, blocks_per_segment=B, n_components=C,
+            init_bitpos=init_bitpos, init_dc=init_dc)
+    if flat.data_ptr() % 16:
+        raise ValueError("flat: storage must be 16-byte aligned")
+    out = torch.zeros((S, B, 64), dtype=torch.int32, device=dev)
+    kernels.launch("vct_k7_huffman_decode_staged", flat.data_ptr(),
+                   flat.shape[0], starts.data_ptr(), lens.data_ptr(),
+                   seg_blocks.data_ptr(), S, comp_sched.data_ptr(), B, C,
+                   lo.data_ptr(), hi.data_ptr(), offset.data_ptr(),
+                   lo.shape[0], values.data_ptr(), values.shape[0],
+                   max_steps(B), _ptr(init_bitpos), _ptr(init_dc), int(L),
+                   out.data_ptr())
+    decode_flat_staged.launches += 1
+    return out
+
+
+decode_flat_staged.launches = 0
+
+
+def _check_segments(segbytes, seg_blocks, comp_sched, lo, hi, offset, values,
+                    B: int, C: int) -> None:
+    if segbytes.dim() != 2 or segbytes.shape[1] < 4:
+        raise ValueError("segbytes: expected (S, L) with L >= 4, got "
+                         f"{tuple(segbytes.shape)}")
+    S = segbytes.shape[0]
+    rows = [("segbytes", segbytes, torch.uint8, tuple(segbytes.shape)),
+            ("seg_blocks", seg_blocks, torch.int32, (S,))]
+    rows += _table_rows(comp_sched, lo, hi, offset, values, B, C)
+    _check(rows, segbytes.device)
+
+
+def decode_segments(segbytes: torch.Tensor, seg_blocks: torch.Tensor,
+                    comp_sched: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor, offset: torch.Tensor,
+                    values: torch.Tensor, *, blocks_per_segment: int,
+                    n_components: int) -> torch.Tensor:
+    """K5: segbytes uint8 (S, L) destuffed zero-padded rows (>= 4 guard
+    bytes), seg_blocks int32 (S,), comp_sched int32 (B,), range tables →
+    (S, B, 64) int32 zigzag coefficients, not saturated."""
+    S, L = segbytes.shape[0], segbytes.shape[-1]
+    B = blocks_per_segment
+    C = n_components
+    _check_segments(segbytes, seg_blocks, comp_sched, lo, hi, offset, values,
+                    B, C)
+    if segbytes.device.type == "cpu":
+        return decode_segments_plain(segbytes, seg_blocks, comp_sched, lo,
+                                     hi, offset, values,
+                                     blocks_per_segment=B, n_components=C)
+    out = torch.zeros((S, B, 64), dtype=torch.int32, device=segbytes.device)
+    kernels.launch("vct_k5_huffman_decode_padded", segbytes.data_ptr(), S, L,
+                   seg_blocks.data_ptr(), comp_sched.data_ptr(), B, C,
+                   lo.data_ptr(), hi.data_ptr(), offset.data_ptr(),
+                   lo.shape[0], values.data_ptr(), values.shape[0],
+                   max_steps(B), out.data_ptr())
+    decode_segments.launches += 1
+    return out
+
+
+decode_segments.launches = 0
+
+
+def decode_segments_streamed(segbytes: torch.Tensor,
+                             seg_blocks: torch.Tensor,
+                             comp_sched: torch.Tensor, lo: torch.Tensor,
+                             hi: torch.Tensor, offset: torch.Tensor,
+                             values: torch.Tensor, *, blocks_per_segment: int,
+                             n_components: int) -> torch.Tensor:
+    """K6: K5's arguments, for long segments → (S, B, 64) int32 zigzag
+    coefficients, not saturated, every block written by the kernel (the
+    output is not zeroed first)."""
+    S, L = segbytes.shape[0], segbytes.shape[-1]
+    B = blocks_per_segment
+    C = n_components
+    _check_segments(segbytes, seg_blocks, comp_sched, lo, hi, offset, values,
+                    B, C)
+    if segbytes.device.type == "cpu":
+        return decode_segments_streamed_plain(
+            segbytes, seg_blocks, comp_sched, lo, hi, offset, values,
+            blocks_per_segment=B, n_components=C)
+    out = torch.empty((S, B, 64), dtype=torch.int32, device=segbytes.device)
+    kernels.launch("vct_k6_huffman_decode_streamed", segbytes.data_ptr(), S,
+                   L, seg_blocks.data_ptr(), comp_sched.data_ptr(), B, C,
+                   lo.data_ptr(), hi.data_ptr(), offset.data_ptr(),
+                   lo.shape[0], values.data_ptr(), values.shape[0],
+                   BLOCK_STEPS, out.data_ptr())
+    decode_segments_streamed.launches += 1
+    return out
+
+
+decode_segments_streamed.launches = 0
+
+
+def decode_segments_lanes(segbytes: torch.Tensor, seg_blocks: torch.Tensor,
+                          comp_sched: torch.Tensor, lo: torch.Tensor,
+                          hi: torch.Tensor, offset: torch.Tensor,
+                          values: torch.Tensor, *, blocks_per_segment: int,
+                          n_components: int) -> torch.Tensor:
+    """K1 over the rows of a padded (S, L) matrix (the reference's
+    ``decode_segments_pallas_t``): row s is lane s, whole."""
+    S, L = segbytes.shape
+    starts = torch.arange(S, dtype=torch.int32, device=segbytes.device) * L
+    return decode_flat(segbytes.reshape(-1), starts,
+                       torch.full_like(starts, L), seg_blocks, comp_sched,
+                       lo, hi, offset, values,
+                       blocks_per_segment=blocks_per_segment,
+                       n_components=n_components)

@@ -1,9 +1,12 @@
-"""Host-side scan preparation: destuffing and frame pipelining.
+"""Host-side scan preparation: destuffing, lane packing, the index scan
+of restart-free streams and frame pipelining.
 
 ``destuff_flat`` is the vectorized numpy form of the reference's C++
 destuff pass: one flat destuffed buffer plus the byte length of every
 restart segment, with the same semantics (0xFF00 → 0xFF, RSTn ends a
 segment, 0xFFFF is a fill byte, any other marker ends the scan).
+``index_scan`` is the reference's symbol walk in pure Python (its C++
+form is not used here).
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..model.header import DecodeError
+from .tables import DecoderTables
 
 
 def destuff_flat(data: bytes) -> tuple[np.ndarray, np.ndarray]:
@@ -49,6 +53,109 @@ def destuff_flat(data: bytes) -> tuple[np.ndarray, np.ndarray]:
     ends = np.concatenate([kept_before[rst], [flat.size]]).astype(np.int64)
     lens = np.diff(np.concatenate([[0], ends]))
     return flat, lens
+
+
+def pack_lanes_sorted(flat: np.ndarray, lens64: np.ndarray,
+                      order: np.ndarray, L: int) -> np.ndarray:
+    """(S, L) zero-padded uint8 lane matrix from the flat destuffed
+    buffer, rows permuted by ``order`` (the load-balancing length sort).
+    ``L`` must be >= lens64.max() + 4: the guard bytes are what a decoder
+    reads past a segment's end."""
+    S = len(lens64)
+    starts = np.zeros(S, np.int64)
+    np.cumsum(lens64[:-1], out=starts[1:])
+    cols = np.arange(L, dtype=np.int64)[None, :]
+    st = starts[order][:, None]
+    ln = lens64[order].astype(np.int64)[:, None]
+    if len(flat) == 0:
+        return np.zeros((S, L), np.uint8)
+    idx = np.clip(st + cols, 0, len(flat) - 1)
+    return np.where(cols < ln, flat[idx], 0).astype(np.uint8)
+
+
+def index_scan(flat: np.ndarray, comp_idx: np.ndarray, stride: int,
+               tables: DecoderTables) -> tuple[np.ndarray, np.ndarray]:
+    """Index ONE destuffed restart-free entropy segment for parallel
+    decode: walk the symbol stream (no coefficient writes) and record, at
+    every ``stride``-block boundary, the absolute bit position and the
+    running DC predictors. The records turn the stream into
+    ceil(n_blocks/stride) independent virtual segments, each decodable
+    bit-exactly on its own lane from that start state.
+
+    Returns (bit_offsets (R,) int64, dc_preds (R, 8) int32); raises
+    ValueError on a malformed symbol (no matching code, a DC category
+    above 15, an AC run past position 63). Pure Python over a rolling
+    64-bit window — roughly a microsecond a symbol, seconds for a 1080p
+    frame; the sessions run the frames of a batch on a thread pool."""
+    data = flat.tobytes()
+    dlen = len(data)
+    n_blocks = len(comp_idx)
+    comps = np.asarray(comp_idx).tolist()
+    R = (n_blocks + stride - 1) // stride
+    bit_offsets = np.zeros(R, dtype=np.int64)
+    dc_preds = np.zeros((R, 8), dtype=np.int32)
+    C = len(tables.dc_luts)
+    # per component: (max_bits, code lengths, data) as Python lists
+    dc_luts = [(int(t.max_bits), t.lengths.tolist(), t.data.tolist())
+               for t in tables.dc_luts]
+    ac_luts = [(int(t.max_bits), t.lengths.tolist(), t.data.tolist())
+               for t in tables.ac_luts]
+
+    window = 0      # the low ``wbits`` bits are the unread stream bits
+    wbits = 0
+    bytepos = 0
+
+    dc_pred = [0] * 8
+    rec = 0
+    for blk in range(n_blocks):
+        if blk % stride == 0:
+            bit_offsets[rec] = bytepos * 8 - wbits
+            dc_preds[rec, :] = dc_pred
+            rec += 1
+        c = comps[blk]
+        if c < 0 or c >= C:
+            raise ValueError(f"index scan failed at block {blk}")
+        mb, lengths, lut_data = dc_luts[c]
+        amb, alengths, adata = ac_luts[c]
+        # symbol 0 is the DC code, the rest AC codes, until EOB or
+        # position 63
+        cof = 0
+        while cof < 64:
+            if wbits < 32:   # one refill covers a 16-bit code + 16 bits
+                window = ((window << 32) | int.from_bytes(
+                    data[bytepos:bytepos + 4].ljust(4, b"\0"), "big")) \
+                    & 0xFFFFFFFFFFFFFFFF
+                bytepos += 4
+                wbits += 32
+            if cof == 0:
+                idx = (window >> (wbits - mb)) & ((1 << mb) - 1) if mb else 0
+                ln = lengths[idx]
+                if ln == 0:
+                    raise ValueError(f"index scan failed at block {blk}")
+                wbits -= ln
+                cat = lut_data[idx]
+                if cat > 15:
+                    raise ValueError(f"index scan failed at block {blk}")
+                if cat:
+                    bits = (window >> (wbits - cat)) & ((1 << cat) - 1)
+                    wbits -= cat
+                    dc_pred[c] += bits if bits >= (1 << (cat - 1)) \
+                        else bits - (1 << cat) + 1
+                cof = 1
+                continue
+            idx = (window >> (wbits - amb)) & ((1 << amb) - 1)
+            ln = alengths[idx]
+            if ln == 0:
+                raise ValueError(f"index scan failed at block {blk}")
+            e = adata[idx]
+            size = e & 0xF
+            wbits -= ln + size
+            if size == 0 and e >> 4 == 0:
+                break  # EOB
+            cof += (e >> 4) + 1
+            if cof > 64:
+                raise ValueError(f"index scan failed at block {blk}")
+    return bit_offsets, dc_preds
 
 
 def _chunked(it, batch: int):

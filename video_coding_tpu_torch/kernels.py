@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (K1-K4).
+"""Build and load the port's CUDA kernels (K1-K7).
 
 The sources in ``csrc/`` have a plain C interface. At first use they are
 compiled with ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per source, all
@@ -20,18 +20,21 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("huffman_decode.cu", "decode_datapath.cu", "encode_datapath.cu",
-           "huffman_encode.cu")
+           "huffman_encode.cu", "huffman_decode_padded.cu",
+           "huffman_decode_streamed.cu", "huffman_decode_staged.cu")
+HEADERS = ("huffman_decode_common.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # flat, starts, lens, seg_blocks, S, comp_sched, B, C, lo, hi, offset,
-    # T, values, V, max_steps, out, stream
+    # T, values, V, max_steps, init_bitpos, init_dc, out, stream
     "vct_k1_huffman_decode": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P,
-                              _I, _P, _I, _I, _P, _P),
+                              _I, _P, _I, _I, _P, _P, _P, _P),
     # coefs, quant, N, P, out, stream
     "vct_k2_decode_datapath": (_P, _P, _I, _I, _P, _P),
     # pixels, quant, N, P, out, stream
@@ -40,6 +43,18 @@ _SIGNATURES = {
     # overflow, stream
     "vct_k4_huffman_encode": (_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P,
                               _P, _P),
+    # segbytes, S, L, seg_blocks, comp_sched, B, C, lo, hi, offset, T,
+    # values, V, max_steps, out, stream
+    "vct_k5_huffman_decode_padded": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
+                                     _I, _P, _I, _I, _P, _P),
+    # as K5, with the per-block symbol cap in place of max_steps
+    "vct_k6_huffman_decode_streamed": (_P, _I, _I, _P, _P, _I, _I, _P, _P,
+                                       _P, _I, _P, _I, _I, _P, _P),
+    # flat, flat_len, starts, lens, seg_blocks, S, comp_sched, B, C, lo, hi,
+    # offset, T, values, V, max_steps, init_bitpos, init_dc, L, out, stream
+    "vct_k7_huffman_decode_staged": (_P, _L, _P, _P, _P, _I, _P, _I, _I, _P,
+                                     _P, _P, _I, _P, _I, _I, _P, _P, _I, _P,
+                                     _P),
 }
 
 _lock = threading.Lock()
@@ -58,7 +73,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -1,11 +1,13 @@
 """JPEG sessions on one torch device: host sequencing + device kernels.
 
   host:   header parse → geometry plan → table packing → destuff and
-          length-sorted lane prep
-  device: K1 Huffman decode (one restart segment per lane) → K2 decode
-          datapath → plane assembly → pad clean → block gather → K3 encode
-          datapath → K4 entropy encode (one segment per lane) → wire
-          assembly; the host joins header + body + EOI.
+          length-sorted lane prep (restart-free streams: an index scan
+          that cuts the one segment into virtual segments)
+  device: Huffman decode, one segment per lane (K1, or by stream shape
+          and strategy K5, K6, K7) → K2 decode datapath → plane assembly
+          → pad clean → block gather → K3 encode datapath → K4 entropy
+          encode (one segment per lane) → wire assembly; the host joins
+          header + body + EOI.
 
 Sessions run on ``cuda`` unless the caller passes a device (the tests pass
 ``device="cpu"``, which runs every kernel's plain PyTorch version). With
@@ -15,17 +17,21 @@ no device and no GPU they raise; nothing falls back silently.
 from __future__ import annotations
 
 import functools
+import logging
+import os
 
 import numpy as np
 import torch
 
 from ..common.bitstream import BitWriter
 from ..entropy.assemble import assemble_frames
-from ..entropy.decode_tables import range_tables
-from ..entropy.huffman_decode import decode_flat
+from ..entropy import huffman_decode
+from ..entropy.decode_tables import (auto_strategy, flat_words_route,
+                                     range_tables)
 from ..entropy.huffman_encode import (device_encoder_tables, encode_segments,
                                       m_out_for)
-from ..entropy.scan import _chunked, _destuff_parts, _pipelined_map
+from ..entropy.scan import (_chunked, _destuff_parts, _pipelined_map,
+                            index_scan, pack_lanes_sorted)
 from ..entropy.tables import pack_decoder_tables, pack_encoder_tables
 from ..model import marker_codes
 from ..model.header import (DecodeError, DecoderGeometry, EncoderGeometry,
@@ -73,12 +79,54 @@ def _blocks_from_plane(plane: torch.Tensor, nby: int,
             .reshape(f, nby * nbx, 8, 8))
 
 
+def _lane_bucket(max_len: int, floor_log2: int) -> int:
+    """Power-of-two lane length with >= 4 guard bytes past the longest
+    lane."""
+    return 1 << max(floor_log2, (max_len + 4 - 1).bit_length())
+
+
 class JpegDecoderSession:
     """Decoder for a fixed header geometry (dims, sampling, tables): feed
-    it the entropy data of any frame with the same headers."""
+    it the entropy data of any frame with the same headers.
 
-    def __init__(self, header: Header, device=None):
+    ``device_huffman`` picks the Huffman decode strategy: ``"auto"``
+    (by stream shape: K1 for many short segments, K6 for long ones, K5
+    otherwise — never a plain version on the card), ``"pallas_t"`` (K1),
+    ``"pallas"`` (K5) or ``"range"`` (the plain PyTorch loop on the
+    padded lane matrix, for an explicit selection only). All are
+    bit-identical on valid streams. ``decode_gather`` says how K1's
+    lanes reach the kernel from the flat buffer: ``"gather"`` (K1 reads
+    global memory) or ``"dma"`` (K7 stages each lane's rows in shared
+    memory itself); the default reads the environment variable
+    ``VCT_DECODE_GATHER``.
+
+    Restart-free streams (one segment a frame, as cameras write them)
+    decode wide all the same when the frame has at least 8 virtual
+    segments' worth of blocks: a host index scan records the bit offset
+    and DC predictors every ``_index_stride()`` blocks and every virtual
+    segment becomes a K1 lane with that start state. Smaller restart-free
+    frames run as one serial lane (``device_entropy_parallel`` is False
+    and the first such call logs a warning)."""
+
+    STRATEGIES = ("auto", "pallas", "pallas_t", "range")
+
+    def __init__(self, header: Header, device=None,
+                 device_huffman: str = "auto",
+                 decode_gather: str | None = None):
         self.device = resolve_device(device)
+        if device_huffman == "lut":
+            raise ValueError("device_huffman='lut' (the 2^16-entry table "
+                             "decode) is not ported yet")
+        if device_huffman not in self.STRATEGIES:
+            raise ValueError(f"device_huffman must be one of "
+                             f"{self.STRATEGIES}, got {device_huffman!r}")
+        if decode_gather is None:
+            decode_gather = ("dma" if os.environ.get("VCT_DECODE_GATHER")
+                             == "dma" else "gather")
+        if decode_gather not in ("gather", "dma"):
+            raise ValueError("decode_gather must be 'gather' or 'dma'")
+        self.device_huffman = device_huffman
+        self.decode_gather = decode_gather
         self.header = header
         geom = DecoderGeometry(header)
         self.components = geom.components
@@ -106,6 +154,7 @@ class JpegDecoderSession:
             self.plane_geom.append((np.array(order, dtype=np.int32),
                                     comp.decoded_height // 8,
                                     comp.decoded_width // 8))
+        self._warned_serial_entropy = False
         self.load_state(DecoderState.from_numpy(self.numpy_state(),
                                                 self.device))
 
@@ -121,19 +170,64 @@ class JpegDecoderSession:
         if int(state.quant.min()) < 1 or state.quant.shape != (self.n_blocks,
                                                                64):
             raise ValueError("decoder quant must be (n_blocks, 64), >= 1")
-        B = self.blocks_per_segment
         self.state = state
-        self._comp_sched = state.comp_idx[:B].contiguous()
-        self._quant_seg = state.quant[:B].contiguous()
-        # the inverse lane permutation folds into the plane gather: block
-        # idx of a frame is offset idx % B of stream segment idx // B
-        self._plane_seg = [(idx // B, idx % B, nby, nbx)
-                           for idx, nby, nbx in state.plane_idx]
+        self._views = {}
+
+    def _seg_view(self, seg_div: int):
+        """(comp_sched, quant rows, plane gather) for lanes of ``seg_div``
+        blocks: every lane shares one block schedule, and the inverse lane
+        permutation folds into the plane gather — block idx of a frame is
+        offset idx % seg_div of stream segment idx // seg_div."""
+        if seg_div not in self._views:
+            st = self.state
+            self._views[seg_div] = (
+                st.comp_idx[:seg_div].contiguous(),
+                st.quant[:seg_div].contiguous(),
+                [(idx // seg_div, idx % seg_div, nby, nbx)
+                 for idx, nby, nbx in st.plane_idx])
+        return self._views[seg_div]
+
+    @property
+    def _comp_sched(self) -> torch.Tensor:
+        return self._seg_view(self.blocks_per_segment)[0]
+
+    @property
+    def _quant_seg(self) -> torch.Tensor:
+        return self._seg_view(self.blocks_per_segment)[1]
 
     @property
     def n_segments(self) -> int:
-        """Restart segments per frame (= K1 lanes per frame)."""
+        """Restart segments per frame (= decode lanes per frame)."""
         return -(-self.n_blocks // self.blocks_per_segment)
+
+    entropy_segments_per_frame = n_segments
+
+    @property
+    def device_entropy_parallel(self) -> bool:
+        """True when the stream is restart-segmented, i.e. a frame has
+        more than one lane of its own. False for restart-free streams —
+        see the class docstring."""
+        return self.n_segments > 1
+
+    def _index_stride(self) -> int:
+        """Virtual blocks per lane for the indexed decode of restart-free
+        streams: a multiple of the MCU (so every virtual segment shares
+        the block schedule) near 24 blocks."""
+        return self.mcu_size * max(1, -(-24 // self.mcu_size))
+
+    def _indexable(self) -> bool:
+        return (self.n_segments == 1
+                and self.n_blocks >= 8 * self._index_stride())
+
+    def _check_device_entropy_route(self) -> None:
+        if (self.device_entropy_parallel or self._warned_serial_entropy
+                or self._indexable()):
+            return
+        self._warned_serial_entropy = True
+        logging.getLogger("video_coding_tpu_torch").warning(
+            "decoding a single-segment (no restart interval) stream too "
+            "small for the indexed route: one lane, serial — bit-exact "
+            "but slow")
 
     def _expected_seg_blocks(self, S: int) -> np.ndarray:
         B = self.blocks_per_segment
@@ -146,64 +240,260 @@ class JpegDecoderSession:
             seg_blocks[-1] = self.n_blocks % B
         return seg_blocks
 
+    # -- host lane prep -----------------------------------------------------
     @staticmethod
-    def _flat_lane_inputs(lens64: np.ndarray, seg_blocks: np.ndarray):
-        """Host prep for the flat-buffer decode: per-segment offsets into
-        the flat buffer and a length-sorted lane order (long segments
-        share warps, so short ones do not idle behind them). Returns
-        (starts, lens, seg_blocks, inv_perm) with the per-lane arrays in
-        sorted order; inv_perm[g] is segment g's lane."""
-        S = len(lens64)
-        lens = lens64.astype(np.int32)
-        starts = np.zeros(S, np.int32)
-        np.cumsum(lens[:-1], out=starts[1:])
+    def _use_padded_lanes(batched: bool = False) -> bool:
+        """Host-packed (S, L) lane matrix, or flat buffer + lane offsets?
+        A single-frame dispatch uploads pre-packed lanes; a batch uploads
+        the flat buffer, about half the bytes."""
+        return not batched
+
+    @staticmethod
+    def _lane_order(lens64: np.ndarray):
+        """Length-sorted lane order (long segments share warps, so short
+        ones do not idle behind them) and its inverse: inv_perm[g] is
+        segment g's lane."""
         order = np.argsort(-lens64, kind="stable")
-        inv_perm = np.empty(S, np.int32)
-        inv_perm[order] = np.arange(S, dtype=np.int32)
+        inv_perm = np.empty(len(lens64), np.int32)
+        inv_perm[order] = np.arange(len(lens64), dtype=np.int32)
+        return order, inv_perm
+
+    @classmethod
+    def _padded_lane_inputs(cls, flat: np.ndarray, lens64: np.ndarray,
+                            seg_blocks: np.ndarray):
+        """Host prep for the padded-lane decode: segments packed into a
+        (S, L) zero-padded matrix in length-sorted order. Returns
+        (lanebuf (S, L), lens, seg_blocks, inv_perm, L) with the per-lane
+        arrays in sorted order."""
+        order, inv_perm = cls._lane_order(lens64)
+        L = _lane_bucket(int(lens64.max()), 5)
+        lanebuf = pack_lanes_sorted(flat, lens64, order, L)
+        return (lanebuf, lens64.astype(np.int32)[order], seg_blocks[order],
+                inv_perm, L)
+
+    @classmethod
+    def _flat_lane_inputs(cls, lens64: np.ndarray, seg_blocks: np.ndarray):
+        """Host prep for the flat-buffer decode: per-segment offsets into
+        the flat buffer in length-sorted lane order. Returns (starts,
+        lens, seg_blocks, inv_perm) with the per-lane arrays in sorted
+        order."""
+        lens = lens64.astype(np.int32)
+        starts = np.zeros(len(lens64), np.int32)
+        np.cumsum(lens[:-1], out=starts[1:])
+        order, inv_perm = cls._lane_order(lens64)
         return starts[order], lens[order], seg_blocks[order], inv_perm
 
-    def _decode_coefs_pool(self, entropy_list: list[bytes]):
-        """Entropy bytes of F frames → ((S, B, 64) coefficients in lane
-        order, inv_perm (S,) int64) on the device, S = F·n_segments."""
-        F = len(entropy_list)
-        n_seg = self.n_segments
-        parts, lens_parts = _destuff_parts(entropy_list, n_seg)
-        flat = np.concatenate(parts) if len(parts) > 1 else parts[0]
+    @staticmethod
+    def _join_flat(parts: list) -> np.ndarray:
+        """The frames' flat buffers as one, zero-padded to a multiple of
+        16 bytes with >= 8 spare (K7 copies whole 16-byte rows)."""
+        total = sum(len(p) for p in parts)
+        flat = np.zeros(-(-(total + 8) // 16) * 16, np.uint8)
+        np.concatenate(parts, out=flat[:total])
+        return flat
+
+    # -- Huffman decode strategies ------------------------------------------
+    def _decode_segments(self, segbytes: torch.Tensor,
+                         seg_blocks: torch.Tensor) -> torch.Tensor:
+        """Padded (S, L) lane matrix → (S, B, 64) coefficients by the
+        session's strategy."""
+        S, L = segbytes.shape
+        B = self.blocks_per_segment
+        how = self.device_huffman
+        if how == "auto":
+            how = auto_strategy(S, L, B)
+        fn = {"pallas_t": huffman_decode.decode_segments_lanes,
+              "streamed": huffman_decode.decode_segments_streamed,
+              "pallas": huffman_decode.decode_segments,
+              "range": huffman_decode.decode_segments_plain}[how]
+        st = self.state
+        return fn(segbytes, seg_blocks, self._comp_sched, st.lo, st.hi,
+                  st.offset, st.values, blocks_per_segment=B,
+                  n_components=len(self.components))
+
+    def _decode_flat_lanes(self, flat, starts, lens, seg_blocks, L: int,
+                           seg_div: int, init_bitpos=None, init_dc=None):
+        """Lanes of the flat buffer → (S, seg_div, 64) coefficients through
+        K1, or K7 with ``decode_gather='dma'``."""
+        st = self.state
+        args = (flat, starts, lens, seg_blocks, self._seg_view(seg_div)[0],
+                st.lo, st.hi, st.offset, st.values)
+        kw = dict(blocks_per_segment=seg_div,
+                  n_components=len(self.components),
+                  init_bitpos=init_bitpos, init_dc=init_dc)
+        if self.decode_gather == "dma":
+            return huffman_decode.decode_flat_staged(*args, L=L, **kw)
+        return huffman_decode.decode_flat(*args, **kw)
+
+    @staticmethod
+    def _gather_lanes(flat, starts, lens, L: int) -> torch.Tensor:
+        """(S, L) zero-padded lane matrix from the flat buffer, on the
+        device (bytes past a segment's length are zeroed)."""
+        cols = torch.arange(L, device=flat.device, dtype=torch.int64)[None]
+        idx = (starts.to(torch.int64)[:, None] + cols).clamp(
+            0, flat.shape[0] - 1)
+        return torch.where(cols < lens[:, None], flat[idx],
+                           flat.new_zeros(())).contiguous()
+
+    def _decode_coefs_pool(self, parts: list, lens_parts: list):
+        """Destuffed frames (flat buffers and per-segment lengths) →
+        ((S, B, 64) coefficients in lane order, inv_perm (S,) int64) on
+        the device, S = F·n_segments."""
+        F = len(parts)
+        dev = self.device
+        B = self.blocks_per_segment
         lens64 = np.concatenate(lens_parts)
-        seg_blocks = np.tile(self._expected_seg_blocks(n_seg), F)
+        seg_blocks = np.tile(self._expected_seg_blocks(self.n_segments), F)
+        if self._use_padded_lanes(batched=F > 1):
+            lanebuf, _lens, segb, inv_perm, _L = self._padded_lane_inputs(
+                np.concatenate(parts), lens64, seg_blocks)
+            coefs = self._decode_segments(_upload(lanebuf, dev),
+                                          _upload(segb, dev))
+            return coefs, _upload(inv_perm, dev).to(torch.int64)
         starts, lens, segb, inv_perm = self._flat_lane_inputs(lens64,
                                                               seg_blocks)
-        dev = self.device
-        st = self.state
-        coefs = decode_flat(
-            _upload(flat, dev), _upload(starts, dev), _upload(lens, dev),
-            _upload(segb, dev), self._comp_sched, st.lo, st.hi, st.offset,
-            st.values, blocks_per_segment=self.blocks_per_segment,
-            n_components=len(self.components))
+        L = _lane_bucket(int(lens64.max()), 6)
+        flat, starts, lens, segb = (_upload(a, dev) for a in (
+            self._join_flat(parts), starts, lens, segb))
+        if flat_words_route(len(lens64), L, B, self.device_huffman):
+            coefs = self._decode_flat_lanes(flat, starts, lens, segb, L, B)
+        else:
+            coefs = self._decode_segments(
+                self._gather_lanes(flat, starts, lens, L), segb)
         return coefs, _upload(inv_perm, dev).to(torch.int64)
 
+    def _decode_device_batch_indexed(self, flats: list):
+        """Indexed decode of restart-free streams: every frame's one
+        segment is index-scanned on the host (a thread pool over the
+        frames) and all frames' virtual segments pool into one K1 lane
+        set, each lane starting at its recorded bit offset and DC
+        predictors. Returns stacked planes — or None when the index scan
+        meets a malformed symbol: the golden model conceals such input
+        where the scan raises, so the caller decodes that batch as one
+        serial lane a frame instead. (That data-dependent case is the
+        only one that leaves this route.)"""
+        stride = self._index_stride()
+
+        def scan(fl):
+            try:
+                return index_scan(fl, self.comp_idx, stride, self.tables)
+            except ValueError:
+                return None
+
+        if len(flats) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=min(8, len(flats))) as ex:
+                idxs = list(ex.map(scan, flats))
+        else:
+            idxs = [scan(flats[0])]
+        if any(i is None for i in idxs):
+            return None
+        F = len(flats)
+        C = len(self.components)
+        R = (self.n_blocks + stride - 1) // stride
+        starts_l, lens_l, bp0_l, dc0_l = [], [], [], []
+        base = 0
+        for fl, (bo, dp) in zip(flats, idxs):
+            s64 = bo >> 3
+            ends = np.empty(R, np.int64)
+            # a lane's last byte may hold the next lane's first bits: its
+            # block count ends it, not its length
+            ends[:-1] = (bo[1:] + 7) >> 3
+            ends[-1] = len(fl)
+            starts_l.append(s64 + base)
+            lens_l.append(ends - s64)
+            bp0_l.append((bo - 8 * s64).astype(np.int32))
+            dc0_l.append(dp[:, :C].astype(np.int32))
+            base += len(fl)
+        lens64 = np.concatenate(lens_l)
+        seg_blocks = np.full(R, stride, dtype=np.int32)
+        if self.n_blocks % stride:
+            seg_blocks[-1] = self.n_blocks % stride
+        order, inv_perm = self._lane_order(lens64)
+        dev = self.device
+        lanes = [np.concatenate(starts_l).astype(np.int32),
+                 lens64.astype(np.int32), np.tile(seg_blocks, F),
+                 np.concatenate(bp0_l), np.concatenate(dc0_l)]
+        starts, lens, segb, bp0, dc0 = (_upload(a[order], dev)
+                                        for a in lanes)
+        coefs = self._decode_flat_lanes(
+            _upload(self._join_flat(flats), dev), starts, lens, segb,
+            _lane_bucket(int(lens64.max()), 6), stride, bp0, dc0)
+        return self._decode_tail_pool(
+            coefs.view(-1, 64), _upload(inv_perm, dev).to(torch.int64), F,
+            stride)
+
     def _decode_tail_pool(self, coefs_pool: torch.Tensor,
-                          inv_perm: torch.Tensor, f: int):
-        """Lane-order (S·B, 64) coefficient pool → tuple of (f, H, W)
-        uint8 plane stacks. K2 runs on the pool as it is (every segment
+                          inv_perm: torch.Tensor, f: int,
+                          seg_div: int | None = None):
+        """Lane-order (S·seg_div, 64) coefficient pool → tuple of (f, H, W)
+        uint8 plane stacks. K2 runs on the pool as it is (every lane
         shares one block schedule, so block j of any lane uses quant row
-        j % B); the inverse lane permutation folds into the plane
+        j % seg_div); the inverse lane permutation folds into the plane
         gather, so stream-ordered coefficients are never materialized."""
-        B = self.blocks_per_segment
-        pixels = datapath.decode_datapath(coefs_pool, self._quant_seg)
+        seg_div = seg_div or self.blocks_per_segment
+        _sched, quant_seg, plane_seg = self._seg_view(seg_div)
+        pixels = datapath.decode_datapath(coefs_pool, quant_seg)
         ip = inv_perm.view(f, -1)
         out = []
-        for seg_i, off_i, nby, nbx in self._plane_seg:
-            cidx = ip[:, seg_i] * B + off_i
+        for seg_i, off_i, nby, nbx in plane_seg:
+            cidx = ip[:, seg_i] * seg_div + off_i
             out.append(_plane_from_blocks(pixels[cidx], nby, nbx))
         return tuple(out)
 
-    def decode_batch_stacked(self, entropy_list: list[bytes]):
+    # -- entry points -------------------------------------------------------
+    def decode_device_batch_stacked(self, entropy_list: list[bytes]):
         """Entropy bytes of F frames → per-component (F, H, W) uint8 plane
-        stacks (decoded, i.e. MCU-padded, sizes) on the device."""
-        coefs, inv_perm = self._decode_coefs_pool(entropy_list)
+        stacks (decoded, i.e. MCU-padded, sizes) on the device: all
+        frames' segments are one lane pool, one Huffman decode launch and
+        one datapath launch."""
+        self._check_device_entropy_route()
+        parts, lens_parts = _destuff_parts(entropy_list, self.n_segments)
+        if self._indexable():
+            out = self._decode_device_batch_indexed(parts)
+            if out is not None:
+                return out
+        coefs, inv_perm = self._decode_coefs_pool(parts, lens_parts)
         return self._decode_tail_pool(coefs.view(-1, 64), inv_perm,
                                       len(entropy_list))
+
+    decode_batch_stacked = decode_device_batch_stacked
+
+    def decode_device_batch(self, entropy_list: list[bytes]):
+        """Like decode_device_batch_stacked, as a list of per-frame plane
+        tuples (device tensors)."""
+        planes = self.decode_device_batch_stacked(entropy_list)
+        return [tuple(p[i] for p in planes)
+                for i in range(len(entropy_list))]
+
+    def decode_device_batch_iter(self, entropy_iter, batch: int = 8,
+                                 depth: int = 2):
+        """Pipelined batched decode for device-resident consumers: chunks
+        of ``batch`` frames each decode as one dispatch with ``depth``
+        chunks in flight, so chunk i+1's host prep and upload overlap
+        chunk i's device work. Yields per-chunk stacked plane tuples."""
+        return _pipelined_map(self.decode_device_batch_stacked,
+                              _chunked(entropy_iter, batch), depth)
+
+    def decode_device_e2e(self, entropy_data: bytes):
+        """Raw entropy bytes of one frame → decoded (MCU-padded) planes on
+        the device: only the destuffed bitstream goes up and only the
+        planes come back. A single frame uploads the padded lane matrix;
+        a restart-free frame takes the indexed route."""
+        return tuple(p[0] for p in
+                     self.decode_device_batch_stacked([entropy_data]))
+
+    def decode_device(self, entropy_data: bytes) -> tuple:
+        """One frame → its planes as numpy arrays cropped to the frame's
+        actual size."""
+        return self._to_frame(self.decode_device_e2e(entropy_data))
+
+    def _to_frame(self, planes_dev) -> tuple:
+        return tuple(
+            np.ascontiguousarray(p.cpu().numpy()[:comp.actual_height,
+                                                 :comp.actual_width])
+            for comp, p in zip(self.components, planes_dev))
 
 
 class JpegEncoderSession:
@@ -441,8 +731,10 @@ def _parameters_maker(frame_hdr):
 
 class JpegTranscodeSession:
     """JPEG → JPEG transcode (re-quantize / re-segment) with pixels never
-    leaving the device: K1 → K2 → plane assembly → pad clean → K3 → K4 →
-    wire assembly. Host traffic per frame = two compressed bitstreams."""
+    leaving the device: Huffman decode → K2 → plane assembly → pad clean →
+    K3 → K4 → wire assembly. Host traffic per frame = two compressed
+    bitstreams. Restart-free input takes the decoder's indexed route, so a
+    camera JPEG comes out restart-segmented."""
 
     def __init__(self, header: Header, quality: int = 75,
                  restart_interval: int = 0, device=None):
@@ -481,7 +773,7 @@ class JpegTranscodeSession:
     def transcode_batch(self, entropy_list: list[bytes]) -> list[bytes]:
         """F frames' entropy bytes → F JPEG streams, one device pass."""
         cleaned = self._clean_planes(
-            self.decoder.decode_batch_stacked(entropy_list))
+            self.decoder.decode_device_batch_stacked(entropy_list))
         return self.encoder._encode_stacked(cleaned)
 
     def transcode_batch_iter(self, entropy_iter, batch: int = 8,
