@@ -7,13 +7,19 @@
     A  restart-free, 16 frames: host index scan, K1 with start-state hooks;
     B  one MCU row a segment (ri=120), 16 frames: K6, the streamed decode;
     C  ri=1, one frame, device_huffman="pallas": K5 on the padded matrix;
-    D  ri=1, 16 frames, decode_gather="dma": K7, the staged decode.
+    D  ri=1, 16 frames, decode_gather="dma": K7, the staged decode;
+- the encoder session's split entropy path (segments of more than 32
+  blocks):
+    E  16 Frames, q75, ri=8 (48 blocks a segment) through
+       encode_device_batch: K3, symbol construction with K9, the packer K8;
+    F  the ri=1 sources transcoded to ri=8: K1 → K2 → K3 → K9 → K8;
+  and the session's host-entropy route, encode(), on one frame.
 
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a nonzero exit):
   1. card      — name and power limit (nvidia-smi);
-  2. build     — nvcc builds K1-K7 from video_coding_tpu_torch/csrc;
+  2. build     — nvcc builds K1-K9 from video_coding_tpu_torch/csrc;
   3. sources   — 16 synthetic 1080p frames encoded on the card at q90 with
                  ri=1, ri=0 and ri=120; one frame of each decoded back and
                  checked by PSNR;
@@ -34,8 +40,25 @@ Phases (any failure ends the run with a nonzero exit):
                  against K1; timed beside their bounds;
   8. rates     — frames a second of decode_device_batch_iter on A and B
                  (median of 3 windows) and the host index scan's time;
-  9. a JSON line of per-kernel numbers;
- 10. a last JSON line {"ok": true, "device": {...}}.
+  9. path E    — one warming dispatch, then encode_device_batch with the
+                 counts reset before and read after: K3, K9 and K8 once
+                 each, K4 never; bytes equal to the same session on the CPU
+                 (2 frames), to device_pack="xla" and to K4 called on the
+                 same coefficients; every stream decodes on the card
+                 (PSNR); frames/s as the median of 3 windows; one dispatch
+                 under the profiler;
+ 10. path F    — transcode_batch to ri=8 with the counts reset and read:
+                 K1, K2, K3, K9, K8; bytes equal to the CPU session's for 2
+                 frames; transcode_batch_iter MPix/s beside phase 5's;
+ 11. host route — encode() of one frame with entropy="python" and "tpu",
+                 coef_transfer="sparse" and "dense": path E's bytes; the
+                 host coder's time (pure Python: seconds a frame);
+ 12. encode kernels — K8 and K9 on the arguments path E gave them, against
+                 their plain versions (exact), K9 also beside table[idx];
+                 symbol construction, the gather packer and K4 on the same
+                 coefficients timed for the breakdown;
+ 13. a JSON line of per-kernel numbers;
+ 14. a last JSON line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the reference package. Needs one
 CUDA card; exits nonzero without one.
@@ -156,12 +179,17 @@ def main() -> int:
 
     from video_coding_tpu_torch import kernels
     from video_coding_tpu_torch.common.bitstream import BitReader
+    from video_coding_tpu_torch.common.frame import ChromaSubsampling, Frame
+    from video_coding_tpu_torch.common.plane import Plane
+    from video_coding_tpu_torch.entropy import gather_pack, symbols
     from video_coding_tpu_torch.entropy import huffman_decode as k1
     from video_coding_tpu_torch.entropy import scan as hscan
     from video_coding_tpu_torch.entropy import huffman_encode as k4
+    from video_coding_tpu_torch.entropy import pack_stuff as k8
     from video_coding_tpu_torch.entropy.scan import _destuff_parts
     from video_coding_tpu_torch.model.header import Header, Parameters
     from video_coding_tpu_torch.ops import datapath
+    from video_coding_tpu_torch.ops import lookup as k9
     from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
                                                        JpegEncoderSession,
                                                        JpegTranscodeSession)
@@ -312,14 +340,20 @@ def main() -> int:
     timed = []
 
     def time_rows(rows, plain_reps):
-        for name, src, replaces, fn, plain, nbytes, nops in rows:
+        """Each row: name, source, replaced kernel, kernel call, plain
+        call, bytes, operations and, where one PyTorch call computes the
+        same function, that call."""
+        for name, src, replaces, fn, plain, nbytes, nops, *lib in rows:
             ms = time_ms(fn, 20)
             plain_ms = time_ms(plain, plain_reps)
+            lib_ms = time_ms(lib[0], 20) if lib else None
             bms, by = bound_ms(nbytes, nops)
             log(f"{name}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, "
-                f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+                + (f"{lib_ms:.4f} ms library call, " if lib else "")
+                + f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
                 f"{nops / 1e9:.3f} G int ops) — {bms / ms:.1%} of bound")
-            timed.append((name, src, replaces, ms, plain_ms, bms, by))
+            timed.append((name, src, replaces, ms, plain_ms, bms, by,
+                          lib_ms))
 
     time_rows(rows, 3)
 
@@ -331,7 +365,9 @@ def main() -> int:
                 "K4": (k4.encode_segments, "launches"),
                 "K5": (k1.decode_segments, "launches"),
                 "K6": (k1.decode_segments_streamed, "launches"),
-                "K7": (k1.decode_flat_staged, "launches")}
+                "K7": (k1.decode_flat_staged, "launches"),
+                "K8": (k8.pack_stuff, "launches"),
+                "K9": (k9.table_lookup, "launches")}
 
     def counted(call, must_launch):
         """Run ``call`` with every launch count set to 0 just before and
@@ -350,11 +386,15 @@ def main() -> int:
                          ("K1", "K2", "K3", "K4"))
     launches = {k: seen[k] for k in ("K1", "K2", "K3", "K4")}
     log(f"main path launches (one transcode_batch, F={FRAMES}): {launches}")
-    for o in outs:
+
+    def parses(o: bytes) -> None:
         hdr = Header.decode(BitReader(o))
         if hdr.frame is None or (hdr.frame.width, hdr.frame.height) != \
                 (WIDTH, HEIGHT) or o[-2:] != b"\xff\xd9":
-            raise RuntimeError("transcoded stream does not parse")
+            raise RuntimeError("encoded stream does not parse")
+
+    for o in outs:
+        parses(o)
     t0 = time.perf_counter()
     cpu = JpegTranscodeSession(header, quality=75, restart_interval=1,
                                device="cpu")
@@ -365,16 +405,19 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s on the CPU); outputs "
         f"{min(map(len, outs))}..{max(map(len, outs))} bytes")
 
-    def window() -> float:
+    def window(session) -> float:
         n = 2 * FRAMES
         t = time.perf_counter()
-        for _ in trans.transcode_batch_iter(payloads * 2, batch=FRAMES,
+        for _ in session.transcode_batch_iter(payloads * 2, batch=FRAMES,
                                             depth=2):
             pass
         return (time.perf_counter() - t) / n
 
-    windows = sorted(window() for _ in range(3))
-    mpix = [WIDTH * HEIGHT / w / 1e6 for w in windows]
+    def transcode_rate(session):
+        windows = sorted(window(session) for _ in range(3))
+        return windows, [WIDTH * HEIGHT / w / 1e6 for w in windows]
+
+    windows, mpix = transcode_rate(trans)
     log(f"transcode_batch_iter {WIDTH}x{HEIGHT} q75 ri=1 F={FRAMES}: median "
         f"{mpix[1]:.2f} MPix/s (windows {', '.join(f'{m:.2f}' for m in mpix)}"
         f"; {windows[1] * 1e3:.2f} ms/frame) on {smi}")
@@ -388,27 +431,30 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trans.transcode_batch(payloads)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if getattr(e, "device_type", None) == DeviceType.CUDA:
-            key = e.name.replace("(anonymous namespace)::", "") \
-                .split("(")[0][:48]
-            by_name[key] = by_name.get(key, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
-    busy_ms = sum(by_name.values())
-    log(f"breakdown: one transcode_batch (F={FRAMES}) {wall_ms:.2f} ms wall "
-        f"under the profiler, device busy {busy_ms:.3f} ms "
-        f"({1 - busy_ms / wall_ms:.1%} idle); host destuff of the "
-        f"{FRAMES} frames alone {destuff_ms:.2f} ms")
-    for key, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"  device {ms:8.3f} ms  {key}")
+    def breakdown(label, call, note=""):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name: dict[str, float] = {}
+        for e in prof.events():
+            if getattr(e, "device_type", None) == DeviceType.CUDA:
+                key = e.name.replace("(anonymous namespace)::", "") \
+                    .split("(")[0][:48]
+                by_name[key] = by_name.get(key, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3
+        busy_ms = sum(by_name.values())
+        log(f"breakdown: one {label} (F={FRAMES}) {wall_ms:.2f} ms wall "
+            f"under the profiler, device busy {busy_ms:.3f} ms "
+            f"({1 - busy_ms / wall_ms:.1%} idle){note}")
+        for key, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            log(f"  device {ms:8.3f} ms  {key}")
 
+    breakdown("transcode_batch", lambda: trans.transcode_batch(payloads),
+              f"; host destuff of the {FRAMES} frames alone "
+              f"{destuff_ms:.2f} ms")
 
     # 6. the decode paths A-D through the sessions' entry points. A spy on
     # each path's wrapper keeps the arguments the session gave the kernel,
@@ -532,14 +578,184 @@ def main() -> int:
         f"{scan_s * 1e3:.1f} ms on the host; one path A dispatch of "
         f"{FRAMES} frames: {wall_a:.2f} s wall on {smi}")
 
-    # 9. kernels line, 10. last line
+    # 9. path E: the encoder session's split entropy path. Spies keep the
+    # arguments the session gave K9 and K8, for phase 12.
+    RI_E = 8
+    frame_objs = [Frame(Plane(data=y), Plane(data=u), Plane(data=v),
+                        ChromaSubsampling.C420) for y, u, v in frames]
+    params_e = Parameters.c420(WIDTH, HEIGHT, 75)
+    enc_e = JpegEncoderSession(params_e, restart_interval=RI_E)
+    t0 = time.perf_counter()
+    enc_e.encode_device_batch(frame_objs)      # warm + lock the ladder
+    log(f"path E: warming dispatch {time.perf_counter() - t0:.2f} s, segment "
+        f"budget locked at {enc_e._seg_budget} bytes")
+    spy8, spy9 = Spy(k8.pack_stuff), Spy(symbols.table_lookup)
+    k8.pack_stuff, symbols.table_lookup = spy8, spy9
+    try:
+        outs_e, seen = counted(
+            lambda: enc_e.encode_device_batch(frame_objs),
+            ("K3", "K9", "K8"))
+    finally:
+        k8.pack_stuff, symbols.table_lookup = spy8.fn, spy9.fn
+    if (seen["K3"], seen["K9"], seen["K8"], seen["K4"]) != (1, 1, 1, 0):
+        raise RuntimeError("path E must launch K3, K9 and K8 once each and "
+                           f"K4 never: {seen}")
+    launches.update(K8=seen["K8"], K9=seen["K9"])
+    (a8, kw8), (a9, _kw9) = spy8.args, spy9.args
+    S_e, K_e = a8[2].shape
+    log(f"path E: {FRAMES} Frames q75 ri={RI_E}, {S_e} lanes of "
+        f"{enc_e.blocks_per_segment} blocks, {K_e} slots a lane, m_out "
+        f"{kw8['m_out']}, launches {seen}; outputs "
+        f"{min(map(len, outs_e))}..{max(map(len, outs_e))} bytes")
+    t0 = time.perf_counter()
+    ref = JpegEncoderSession(params_e, RI_E, device="cpu") \
+        .encode_device_batch(frame_objs[:2])
+    if outs_e[:2] != ref:
+        raise RuntimeError("path E bytes differ from the CPU session's")
+    log(f"path E: 2 frames byte-identical to device='cpu' "
+        f"({time.perf_counter() - t0:.1f} s on the CPU)")
+    if JpegEncoderSession(params_e, RI_E, device_pack="xla") \
+            .encode_device_batch(frame_objs) != outs_e:
+        raise RuntimeError("path E bytes differ from device_pack='xla'")
+    # K4 on the same coefficients (its contract has no 32-block cap)
+    qc_e = enc_e._encode_qc_batch(enc_e._stack_frames(frame_objs))
+    qc_seg_e = enc_e._pad_segments(qc_e, FRAMES)
+    out8, lens8, ovf8 = k8.pack_stuff(*a8, **kw8)
+    st_e = enc_e.state
+    k4_e = (qc_seg_e, enc_e._valid_batch(FRAMES), enc_e._comp_sched,
+            st_e.dctab, st_e.actab)
+    out4, lens4e, ovf4 = k4.encode_segments(*k4_e, m_out=kw8["m_out"])
+    compare("K8 bytes against K4", out8, out4)
+    compare("K8 lens against K4", lens8, lens4e)
+    if bool(ovf8) or bool(ovf4):
+        raise RuntimeError("path E overflowed at the locked budget")
+    log("path E: bytes equal to device_pack='xla' and to K4 called on "
+        "the same coefficients (whole output array)")
+    del out4, lens4e
+    bits = BitReader(outs_e[0])
+    hdr_e = Header.decode(bits)
+    hdr_len_e = bits.bit_pos >> 3
+    dec_e = JpegDecoderSession(hdr_e)
+    worst = 99.0
+    for o, src in zip(outs_e, frames):
+        parses(o)
+        for g, r in zip(dec_e.decode_device(o[hdr_len_e:]), src):
+            if g.shape != r.shape:
+                raise RuntimeError("path E: decoded plane shape differs")
+            worst = min(worst, psnr(g, r))
+    log(f"path E: {FRAMES} streams parse and decode on the card, lowest "
+        f"plane PSNR {worst:.2f} dB")
+    if worst <= 30.0:
+        raise RuntimeError(f"path E decode PSNR {worst:.2f} dB <= 30 dB")
+
+    def enc_window() -> float:
+        t = time.perf_counter()
+        for _ in range(2):
+            enc_e.encode_device_batch(frame_objs)
+        return 2 * FRAMES / (time.perf_counter() - t)
+
+    w = sorted(enc_window() for _ in range(3))
+    log(f"encode_device_batch path E {WIDTH}x{HEIGHT} q75 ri={RI_E} "
+        f"F={FRAMES}: median {w[1]:.2f} frames/s (windows "
+        f"{', '.join(f'{x:.2f}' for x in w)}) on {smi}")
+    breakdown("encode_device_batch (path E)",
+              lambda: enc_e.encode_device_batch(frame_objs))
+
+    # 10. path F: the ri=1 sources transcoded to ri=8
+    trans_f = JpegTranscodeSession(header, quality=75, restart_interval=RI_E)
+    trans_f.transcode_batch(payloads)          # warm + lock the ladder
+    outs_f, seen = counted(lambda: trans_f.transcode_batch(payloads),
+                           ("K1", "K2", "K3", "K9", "K8"))
+    if seen["K4"]:
+        raise RuntimeError(f"path F launched K4: {seen}")
+    log(f"path F: transcode_batch ri=1 -> ri={RI_E}, launches {seen}; "
+        f"outputs {min(map(len, outs_f))}..{max(map(len, outs_f))} bytes")
+    for o in outs_f:
+        parses(o)
+    t0 = time.perf_counter()
+    ref = JpegTranscodeSession(header, quality=75, restart_interval=RI_E,
+                               device="cpu").transcode_batch(payloads[:2])
+    if outs_f[:2] != ref:
+        raise RuntimeError("path F bytes differ from the CPU session's")
+    log(f"path F: 2 frames byte-identical to device='cpu' "
+        f"({time.perf_counter() - t0:.1f} s on the CPU)")
+    windows_f, mpix_f = transcode_rate(trans_f)
+    log(f"transcode_batch_iter path F {WIDTH}x{HEIGHT} q75 ri=1 -> "
+        f"ri={RI_E} F={FRAMES}: median {mpix_f[1]:.2f} MPix/s (windows "
+        f"{', '.join(f'{m:.2f}' for m in mpix_f)}; "
+        f"{windows_f[1] * 1e3:.2f} ms/frame) beside {mpix[1]:.2f} MPix/s "
+        f"for ri=1 -> ri=1 in this run, on {smi}")
+    breakdown("transcode_batch (path F)",
+              lambda: trans_f.transcode_batch(payloads))
+
+    # 11. the host-entropy route on one frame (the host coder is pure
+    # Python: seconds a 1080p frame)
+    for entropy in ("python", "tpu"):
+        for transfer in ("sparse", "dense"):
+            host = JpegEncoderSession(params_e, RI_E, entropy=entropy,
+                                      coef_transfer=transfer)
+            t0 = time.perf_counter()
+            got = host.encode(frame_objs[0])
+            ms = (time.perf_counter() - t0) * 1e3
+            if got != outs_e[0]:
+                raise RuntimeError(f"encode() entropy={entropy} coef_transfer"
+                                   f"={transfer} differs from path E's bytes")
+            log(f"host route: encode() entropy={entropy} coef_transfer="
+                f"{transfer}: path E's bytes, {ms:.1f} ms a frame (first "
+                f"call) on {smi}")
+
+    # 12. K8 and K9 on path E's arguments
+    out8_p, lens8_p, ovf8_p = k8.pack_stuff_plain(*a8, **kw8)
+    err["K8"] = max(compare("K8 bytes", out8, out8_p),
+                    compare("K8 lens", lens8, lens8_p),
+                    compare("K8 overflow", ovf8, ovf8_p))
+    n_slots = int((a8[2] > 0).sum())
+    k8_bytes = 3 * 4 * S_e * K_e + 4 * S_e + out8.numel() + 4 * S_e + 4
+    k8_ops = 4.0 * S_e * K_e + 16.0 * n_slots + 6.0 * int(lens8.sum())
+    log(f"K8 input: {n_slots} of {S_e * K_e} slots hold bits "
+        f"({n_slots / (S_e * K_e):.1%}); {int(lens8.sum())} bytes out, "
+        f"longest lane {int(lens8.max())}")
+    del out8_p, lens8_p
+    got9 = k9.table_lookup(*a9)
+    err["K9"] = compare("K9", got9, k9.table_lookup_plain(*a9))
+    compare("K9 against table[idx]", got9, a9[0][a9[1]])
+    n9 = a9[1].numel()
+    del got9
+    rows = [
+        ("K8", "video_coding_tpu_torch/csrc/pack_stuff.cu",
+         "video_coding_tpu/entropy/pallas_encode.py:275",
+         lambda: k8.pack_stuff(*a8, **kw8),
+         lambda: k8.pack_stuff_plain(*a8, **kw8), k8_bytes, k8_ops),
+        ("K9", "video_coding_tpu_torch/csrc/table_lookup.cu",
+         "video_coding_tpu/ops/lookup.py:55",
+         lambda: k9.table_lookup(*a9),
+         lambda: k9.table_lookup_plain(*a9),
+         8 * n9 + 4 * a9[0].numel(), 2.0 * n9,
+         lambda: a9[0][a9[1]])]
+    time_rows(rows, 1)
+    sym_args = (qc_seg_e.view(-1, 64), enc_e._comp_sched.repeat(S_e),
+                st_e.prev_same_comp, st_e.dctab, st_e.actab)
+    B_e = enc_e.blocks_per_segment
+    ms_sym = time_ms(lambda: symbols.segment_slots(*sym_args, B_e, None), 5)
+    ms_gather = time_ms(lambda: gather_pack.encode_segments_device(
+        *sym_args, blocks_per_segment=B_e, max_seg_bytes=kw8["m_raw"]), 3)
+    ms_split = time_ms(lambda: k8.encode_segments_split(
+        *sym_args, blocks_per_segment=B_e, max_seg_bytes=kw8["m_raw"]), 5)
+    ms_k4 = time_ms(lambda: k4.encode_segments(*k4_e, m_out=kw8["m_out"]),
+                    10)
+    log(f"path E's entropy encode as torch ops ({S_e} lanes): symbol "
+        f"construction (with K9) {ms_sym:.3f} ms; split route (symbols + pad "
+        f"slot + K8) {ms_split:.3f} ms; gather packer (symbols + gathers) "
+        f"{ms_gather:.3f} ms; K4 on the same coefficients {ms_k4:.3f} ms")
+
+    # 13. kernels line, 14. last line
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name],
          "max_abs_err": err[name],
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-         "library_ms": None}
-        for name, src, replaces, ms, plain_ms, bms, by in timed]}),
+         "library_ms": lib_ms}
+        for name, src, replaces, ms, plain_ms, bms, by, lib_ms in timed]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
-"""K1-K7 CUDA kernels against their plain versions on the card, and the
-transcode and the decode routes on the card against the same sessions on
-the CPU. Marked
+"""K1-K9 CUDA kernels against their plain versions on the card, and the
+transcode, the decode routes and the encoder's packer routes on the card
+against the same sessions on the CPU. Marked
 ``cuda``: they skip without a GPU (run them on one with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``)."""
 
@@ -9,10 +9,11 @@ import pytest
 import torch
 
 from video_coding_tpu_torch.common.bitstream import BitReader
-from video_coding_tpu_torch.entropy import huffman_decode, huffman_encode
+from video_coding_tpu_torch.entropy import (huffman_decode, huffman_encode,
+                                            pack_stuff)
 from video_coding_tpu_torch.entropy.scan import _destuff_parts
 from video_coding_tpu_torch.model.header import Header, Parameters
-from video_coding_tpu_torch.ops import datapath
+from video_coding_tpu_torch.ops import datapath, lookup
 from video_coding_tpu_torch.runtime import engine
 from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
                                                    JpegEncoderSession,
@@ -208,3 +209,83 @@ def test_flat_kernels_on_corrupt_lanes(gpu, staged):
         assert torch.equal(k7, k1)
         assert torch.equal(k7, huffman_decode.decode_flat_staged_plain(
             *args, L=64, **kw))
+
+
+@pytest.mark.parametrize("T,n,offset", [(1, 5, 0), (128, 1000, 1),
+                                        (528, 100003, 3), (1024, 4096, 0)])
+def test_table_lookup_kernel_matches_plain(gpu, T, n, offset):
+    """K9 on in-range and out-of-range indices, at element offsets that
+    leave the index array off a 16-byte boundary."""
+    rng = np.random.default_rng(T)
+    table = torch.from_numpy(
+        rng.integers(-2**31, 2**31, T, dtype=np.int64).astype(np.int32)
+    ).to(gpu)
+    idx = rng.integers(0, T, n + offset).astype(np.int32)
+    idx[::7] = rng.integers(-5, T + 5, len(idx[::7]))
+    idx[:3] = (-1, T, 2**31 - 1)
+    idx = torch.from_numpy(idx).to(gpu)[offset:]
+    before = lookup.table_lookup.launches
+    got = lookup.table_lookup(table, idx)
+    assert lookup.table_lookup.launches == before + 1
+    assert torch.equal(got, lookup.table_lookup_plain(table, idx))
+    two_d = idx[:n // 5 * 5].reshape(-1, 5).contiguous()
+    assert torch.equal(lookup.table_lookup(table, two_d),
+                       lookup.table_lookup_plain(table, two_d))
+    with pytest.raises(ValueError):
+        lookup.table_lookup(torch.zeros(1025, dtype=torch.int32, device=gpu),
+                            idx)
+
+
+@pytest.mark.parametrize("S,K", [(1, 1), (31, 66), (70, 131), (300, 2341)])
+def test_pack_stuff_kernel_matches_plain(gpu, S, K):
+    """K8 on synthetic slots: lengths over and outside 0..59, garbage
+    above the length, all-ones values (runs of 0xFF), lane counts and
+    slot counts off the tile sizes, fitting and overflowing budgets."""
+    rng = np.random.default_rng(S * K)
+    c_len = rng.integers(0, 60, (S, K)).astype(np.int32)
+    c_len[rng.random((S, K)) < 0.5] = 0
+    c_len[:, ::11] = 32
+    c_len[0, :4] = (-3, 64, 60, 59)[:K]
+    c_hi = rng.integers(-2**31, 2**31, (S, K), dtype=np.int64) \
+        .astype(np.int32)
+    c_lo = rng.integers(-2**31, 2**31, (S, K), dtype=np.int64) \
+        .astype(np.int32)
+    c_hi[S // 2:] = -1
+    c_lo[S // 2:] = -1
+    raw = rng.integers(0, 500, S).astype(np.int32)
+    args = [torch.from_numpy(a).to(gpu) for a in (c_hi, c_lo, c_len, raw)]
+    for m_raw, m_out in ((10**6, K * 16 + 8), (250, max(1, K))):
+        before = pack_stuff.pack_stuff.launches
+        got = pack_stuff.pack_stuff(*args, m_raw=m_raw, m_out=m_out)
+        assert pack_stuff.pack_stuff.launches == before + 1
+        ref = pack_stuff.pack_stuff_plain(*args, m_raw=m_raw, m_out=m_out)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("ri,pack,kernel", [(6, "pallas", "K8"),
+                                            (2, "pallas", "K4"),
+                                            (6, "xla", None),
+                                            (6, "auto", "K8")])
+def test_encoder_routes_on_card_match_cpu(gpu, ri, pack, kernel):
+    """encode_device_batch by device_pack on the card: the route launches
+    its kernels and the bytes equal the same session's on the CPU."""
+    rng = np.random.default_rng(ri)
+    w, h = 256, 128
+    frames = [(rng.integers(0, 256, (h, w), dtype=np.uint8),
+               rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
+               rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+              for _ in range(4)]
+    params = Parameters.c420(w, h, 60)
+    counts = {"K4": huffman_encode.encode_segments, "K8": pack_stuff.pack_stuff,
+              "K9": lookup.table_lookup}
+    before = {k: fn.launches for k, fn in counts.items()}
+    got = JpegEncoderSession(params, ri, device=gpu, device_pack=pack) \
+        .encode_device_batch(frames)
+    delta = {k: fn.launches - before[k] for k, fn in counts.items()}
+    assert (delta["K4"] > 0) == (kernel == "K4")
+    assert (delta["K8"] > 0) == (kernel == "K8")
+    assert (delta["K9"] > 0) == (kernel != "K4")
+    ref = JpegEncoderSession(params, ri, device="cpu", device_pack=pack) \
+        .encode_device_batch(frames)
+    assert got == ref

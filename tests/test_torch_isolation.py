@@ -48,6 +48,29 @@ _CHILD = textwrap.dedent("""
         got = dec.decode_device_batch([fp, fp])[1]
         assert all((a == b).all() for a, b in zip(dec._to_frame(got), ref))
     assert ref[0].shape == (96, 128)
+    # the encoder's split path and host routes: symbols (K9), the packer
+    # (K8), the gather packer, the host coder, the sparse transfer, Frames
+    from video_coding_tpu_torch.common import frame, plane, size
+    from video_coding_tpu_torch.entropy import (gather_pack, pack_stuff,
+                                                symbols)
+    from video_coding_tpu_torch.ops import lookup, sparse
+    from video_coding_tpu_torch.runtime.engine import encode_jpeg
+    fr = frame.Frame(*(plane.Plane(data=p) for p in big),
+                     frame.ChromaSubsampling.C420)
+    assert (fr.width, fr.height) == (128, 96)
+    assert size.Size(128, 96).width == 128
+    outs = {JpegEncoderSession(Parameters.c420(128, 96, 80), 6, device="cpu",
+                               device_pack=pack, entropy=ent,
+                               coef_transfer=tr)
+            for pack, ent, tr in (("pallas", "python", "dense"),
+                                  ("xla", "tpu", "sparse"))}
+    streams = {e.encode_device(fr) for e in outs} | {e.encode(fr)
+                                                     for e in outs}
+    streams.add(encode_jpeg(fr, 80, restart_interval=6, device="cpu"))
+    assert len(streams) == 1
+    for mod in (frame, plane, size, gather_pack, pack_stuff, symbols, lookup,
+                sparse):
+        assert mod.__name__ in sys.modules
     leaked = sorted(m for m in sys.modules
                     if m == "video_coding_tpu"
                     or m.startswith("video_coding_tpu."))
@@ -66,6 +89,26 @@ def test_port_runs_without_jax_or_reference_package():
     assert r.returncode == 0, r.stderr
     assert "LEAKED []" in r.stdout
     assert "JAX []" in r.stdout
+
+
+def test_port_sources_name_neither_jax_nor_reference_package():
+    """No module of the port, and not the smoke script, has an import of
+    jax or of the reference package."""
+    import pathlib
+    import re
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    files = sorted((root / "video_coding_tpu_torch").rglob("*.py")) \
+        + [root / "chip_smoke.py"]
+    names = {f.relative_to(root).as_posix() for f in files}
+    for mod in ("ops/lookup.py", "ops/sparse.py", "entropy/pack_stuff.py",
+                "entropy/gather_pack.py", "entropy/symbols.py",
+                "common/frame.py", "common/plane.py", "common/size.py"):
+        assert f"video_coding_tpu_torch/{mod}" in names
+    pat = re.compile(r"^\s*(from|import)\s+(jax|video_coding_tpu)(\.|\s|$)",
+                     re.M)
+    for f in files:
+        assert not pat.search(f.read_text()), f
 
 
 def test_sessions_without_device_raise_when_no_gpu(monkeypatch):

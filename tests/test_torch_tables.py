@@ -27,7 +27,8 @@ def _reference_arrays(jdec, jenc):
            "range_tables": tpu_decode.range_tables(jdec.tables)}
     enc = {"quant": jenc.quant, "comp_idx": jenc.comp_idx,
            "perm": np.asarray(jenc._perm_dev), "gather": jenc.gather,
-           "tables": tpu_encode.device_encoder_tables(jenc.tables)}
+           "tables": tpu_encode.device_encoder_tables(jenc.tables),
+           "prev_same_comp": np.asarray(jenc._enc_geometry(64)[6])}
     return dec, enc
 
 

@@ -78,7 +78,8 @@ def test_encode_device_batch_matches_golden_model(sub, w, h, ri):
     JPEG bytes equal to the reference model's encode (odd sizes pad)."""
     maker = {"420": Parameters.c420, "444": Parameters.c444}[sub]
     frames = [synth_frame(sub, w, h, seed) for seed in (3, 4)]
-    enc = JpegEncoderSession(maker(w, h, 70), ri, device="cpu")
+    enc = JpegEncoderSession(maker(w, h, 70), ri, device="cpu",
+                             device_pack="pallas")       # K4: B <= 32
     outs = enc.encode_device_batch(
         [(f.y.data, f.u.data, f.v.data) for f in frames])
     assert outs == [encode(sub, f, 70, ri) for f in frames]

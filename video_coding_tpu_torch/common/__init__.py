@@ -1,5 +1,9 @@
-"""Common runtime pieces: MSB-first bitstream reader and writer."""
+"""Common runtime pieces: planes, frames, bitstream I/O, sizes."""
 
 from .bitstream import BitReader, BitWriter
+from .frame import ChromaSubsampling, Frame
+from .plane import Plane
+from .size import Offset, Range, Size
 
-__all__ = ["BitReader", "BitWriter"]
+__all__ = ["BitReader", "BitWriter", "ChromaSubsampling", "Frame", "Plane",
+           "Offset", "Range", "Size"]

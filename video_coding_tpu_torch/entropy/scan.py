@@ -1,20 +1,22 @@
-"""Host-side scan preparation: destuffing, lane packing, the index scan
-of restart-free streams and frame pipelining.
+"""Host-side scan work: destuffing, lane packing, the index scan of
+restart-free streams, the host entropy coder and frame pipelining.
 
 ``destuff_flat`` is the vectorized numpy form of the reference's C++
 destuff pass: one flat destuffed buffer plus the byte length of every
 restart segment, with the same semantics (0xFF00 → 0xFF, RSTn ends a
 segment, 0xFFFF is a fill byte, any other marker ends the scan).
 ``index_scan`` is the reference's symbol walk in pure Python (its C++
-form is not used here).
+form is not used here). ``encode_scan`` is the host entropy coder, also in
+pure Python: the port has no C++ engine.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..common.bitstream import BitWriter
 from ..model.header import DecodeError
-from .tables import DecoderTables
+from .tables import DecoderTables, EncoderTables
 
 
 def destuff_flat(data: bytes) -> tuple[np.ndarray, np.ndarray]:
@@ -156,6 +158,98 @@ def index_scan(flat: np.ndarray, comp_idx: np.ndarray, stride: int,
             if cof > 64:
                 raise ValueError(f"index scan failed at block {blk}")
     return bit_offsets, dc_preds
+
+
+def size_category(value: int) -> int:
+    """Bit-size category of a coefficient."""
+    return 0 if value == 0 else int(abs(value)).bit_length()
+
+
+def magnitude_bits(size: int, value: int) -> int:
+    """Magnitude code for a value of the given size."""
+    mask = (1 << size) - 1
+    return value & mask if value >= 0 else (value - 1) & mask
+
+
+def encode_scan(qcoefs: np.ndarray, comp_idx: np.ndarray,
+                blocks_per_segment: int,
+                tables: EncoderTables) -> list[bytes]:
+    """Entropy-encode a whole scan on the host. Returns one stuffed,
+    1-bit-padded byte buffer per restart segment (the caller joins them
+    with RSTn markers). Pure Python over a BitWriter: about a second for
+    a 1080p frame."""
+    n_blocks = len(comp_idx)
+    qcoefs = np.ascontiguousarray(qcoefs, dtype=np.int32)
+    if np.abs(qcoefs).max(initial=0) > 2047:
+        # the Huffman magnitude range is 11 bits (DC diff <= cat 11, AC <=
+        # cat 10); larger values would index past the code tables
+        raise ValueError("quantized coefficients exceed the 12-bit "
+                         "baseline-JPEG range")
+    comps = np.ascontiguousarray(comp_idx, dtype=np.int32).tolist()
+    n_segments = (n_blocks + blocks_per_segment - 1) // blocks_per_segment
+    ncomp = len(tables.dc_bits) // 12
+    dc_bits, dc_len = tables.dc_bits.tolist(), tables.dc_len.tolist()
+    ac_bits, ac_len = tables.ac_bits.tolist(), tables.ac_len.tolist()
+    result = []
+    for s in range(n_segments):
+        first = s * blocks_per_segment
+        count = min(blocks_per_segment, n_blocks - first)
+        w = BitWriter()
+        put = w.put_bits
+        dc_pred = [0] * ncomp
+        for b in range(first, first + count):
+            c = comps[b]
+            q = qcoefs[b]
+            dc = int(q[0])
+            diff = dc - dc_pred[c]
+            dc_pred[c] = dc
+            size = size_category(diff)
+            put(dc_bits[c * 12 + size], dc_len[c * 12 + size], stuffing=True)
+            put(magnitude_bits(size, diff), size, stuffing=True)
+            eob = c * 176
+            nz = np.flatnonzero(q[1:])
+            if len(nz) == 0:
+                put(ac_bits[eob], ac_len[eob], stuffing=True)
+                continue
+            run = 0
+            prev = 0
+            for pos in (nz + 1).tolist():
+                run = pos - prev - 1
+                prev = pos
+                while run >= 16:
+                    put(ac_bits[eob + 15 * 11], ac_len[eob + 15 * 11],
+                        stuffing=True)
+                    run -= 16
+                v = int(q[pos])
+                sz = size_category(v)
+                idx = eob + run * 11 + sz
+                put(ac_bits[idx], ac_len[idx], stuffing=True)
+                put(magnitude_bits(sz, v), sz, stuffing=True)
+            if prev < 63:
+                put(ac_bits[eob], ac_len[eob], stuffing=True)
+        w.flush_with_1s(stuffing=True)
+        result.append(w.get_buffer())
+    return result
+
+
+def join_segments(segments: list[bytes]) -> bytes:
+    """Stuffed segments joined with RSTn markers: the entropy body as it
+    goes on the wire."""
+    out = bytearray()
+    for i, seg in enumerate(segments):
+        if i > 0:
+            out += bytes((0xFF, 0xD0 + ((i - 1) & 7)))
+        out += seg
+    return bytes(out)
+
+
+def encode_scan_stream(qcoefs: np.ndarray, comp_idx: np.ndarray,
+                       blocks_per_segment: int,
+                       tables: EncoderTables) -> bytes:
+    """Entropy-encode a whole scan straight to its on-the-wire entropy
+    body: ``encode_scan`` and the RSTn join."""
+    return join_segments(encode_scan(qcoefs, comp_idx, blocks_per_segment,
+                                     tables))
 
 
 def _chunked(it, batch: int):

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (K1-K7).
+"""Build and load the port's nine CUDA kernels (K1-K9).
 
 The sources in ``csrc/`` have a plain C interface. At first use they are
 compiled with ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per source, all
@@ -21,7 +21,8 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("huffman_decode.cu", "decode_datapath.cu", "encode_datapath.cu",
            "huffman_encode.cu", "huffman_decode_padded.cu",
-           "huffman_decode_streamed.cu", "huffman_decode_staged.cu")
+           "huffman_decode_streamed.cu", "huffman_decode_staged.cu",
+           "pack_stuff.cu", "table_lookup.cu")
 HEADERS = ("huffman_decode_common.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "torch_kernels"
@@ -55,6 +56,11 @@ _SIGNATURES = {
     "vct_k7_huffman_decode_staged": (_P, _L, _P, _P, _P, _I, _P, _I, _I, _P,
                                      _P, _P, _I, _P, _I, _I, _P, _P, _I, _P,
                                      _P),
+    # c_hi, c_lo, c_len, raw_bytes_len, S, K, m_raw, m_out, out, out_lens,
+    # overflow, stream
+    "vct_k8_pack_stuff": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # table, T, idx, n, out, stream
+    "vct_k9_table_lookup": (_P, _I, _P, _L, _P, _P),
 }
 
 _lock = threading.Lock()

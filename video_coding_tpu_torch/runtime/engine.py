@@ -5,9 +5,15 @@
           that cuts the one segment into virtual segments)
   device: Huffman decode, one segment per lane (K1, or by stream shape
           and strategy K5, K6, K7) → K2 decode datapath → plane assembly
-          → pad clean → block gather → K3 encode datapath → K4 entropy
-          encode (one segment per lane) → wire assembly; the host joins
-          header + body + EOI.
+          → pad clean → block gather → K3 encode datapath → entropy
+          encode, one segment per lane (K4 for segments of at most 32
+          blocks, else symbol construction with K9 and the packer K8, or
+          the gather packer by ``device_pack``) → wire assembly; the host
+          joins header + body + EOI.
+
+The encoder session also has the host-entropy route: K3 on the device, a
+dense or sparse coefficient download, then the host coder (pure Python)
+or the gather packer per frame.
 
 Sessions run on ``cuda`` unless the caller passes a device (the tests pass
 ``device="cpu"``, which runs every kernel's plain PyTorch version). With
@@ -24,19 +30,23 @@ import numpy as np
 import torch
 
 from ..common.bitstream import BitWriter
+from ..common.frame import ChromaSubsampling, Frame
+from ..common.plane import Plane
 from ..entropy.assemble import assemble_frames
-from ..entropy import huffman_decode
+from ..entropy import gather_pack, huffman_decode, pack_stuff
 from ..entropy.decode_tables import (auto_strategy, flat_words_route,
                                      range_tables)
 from ..entropy.huffman_encode import (device_encoder_tables, encode_segments,
                                       m_out_for)
+from ..entropy import scan as entropy_scan
 from ..entropy.scan import (_chunked, _destuff_parts, _pipelined_map,
                             index_scan, pack_lanes_sorted)
+from ..entropy.symbols import prev_same_component
 from ..entropy.tables import pack_decoder_tables, pack_encoder_tables
 from ..model import marker_codes
 from ..model.header import (DecodeError, DecoderGeometry, EncoderGeometry,
                             Header, Parameters)
-from ..ops import datapath
+from ..ops import datapath, sparse
 from ..state import DecoderState, EncoderState
 
 _EOI = bytes((0xFF, marker_codes.EOI))
@@ -498,11 +508,53 @@ class JpegDecoderSession:
 
 class JpegEncoderSession:
     """Encoder for fixed parameters (dims, quality, subsampling, restart
-    interval)."""
+    interval).
+
+    Two families of entry points. ``encode_device*`` run everything on
+    the device: K3, the entropy encode and the wire assembly; only the
+    bodies come back. ``device_pack`` picks their bitstream packer:
+    ``"pallas"`` (the hand-written kernels: K4 for segments of at most 32
+    blocks, else symbol construction with K9 feeding the packer K8),
+    ``"xla"`` (the gather packer in plain torch) or ``"auto"`` (the
+    kernels when the reference's lane-chunk rule gives at least 128 lanes
+    for this segment size and budget and the dispatch has at least 64
+    segments, else the gather packer). All are byte-identical.
+
+    ``encode``, ``encode_planes``, ``encode_batch`` and ``encode_iter``
+    run K3 on the device, download the quantized coefficients and code the
+    entropy per frame by ``entropy``: ``"python"`` (the host coder, pure
+    Python: about a second for a 1080p frame), ``"native"`` (the same host
+    coder — the port has no C++ engine, and does what the reference does
+    when its library is absent) or ``"tpu"`` (the
+    gather packer on the session's device). ``coef_transfer`` is the
+    download: ``"dense"`` (int16), ``"sparse"`` (occupancy bitmask +
+    packed nonzeros, dense when the value budget overflows) or ``"auto"``
+    (sparse on a GPU)."""
+
+    ENTROPY = ("native", "python", "tpu")
+    COEF_TRANSFER = ("auto", "dense", "sparse")
+    DEVICE_PACK = ("auto", "pallas", "xla")
 
     def __init__(self, params: Parameters, restart_interval: int = 0,
-                 device=None):
+                 device=None, entropy: str = "native",
+                 coef_transfer: str = "auto", device_pack: str = "auto"):
         self.device = resolve_device(device)
+        for name, value, allowed in (
+                ("entropy", entropy, self.ENTROPY),
+                ("coef_transfer", coef_transfer, self.COEF_TRANSFER),
+                ("device_pack", device_pack, self.DEVICE_PACK)):
+            if value not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got "
+                                 f"{value!r}")
+        self.entropy = entropy
+        self.coef_transfer = coef_transfer
+        self.device_pack = device_pack
+        self._sparse = coef_transfer == "sparse" or (
+            coef_transfer == "auto" and self.device.type == "cuda")
+        # sparse download: nonzero-value budget per block (adaptive — a
+        # frame that overflows it doubles it and goes down dense)
+        self._cap_per_block = 16
+        self._cap_locked = False
         self.params = params
         self.restart_interval = restart_interval
         self._geom = EncoderGeometry(params, restart_interval)
@@ -545,25 +597,38 @@ class JpegEncoderSession:
 
     def numpy_state(self) -> dict:
         """The arrays this session computes with (see state.py)."""
+        sched = np.resize(self.comp_idx[:self.blocks_per_segment],
+                          self.blocks_per_segment)
         return {"quant": self.quant, "comp_idx": self.comp_idx,
                 "perm": self.perm, "gather": self.gather,
-                "tables": device_encoder_tables(self.tables)}
+                "tables": device_encoder_tables(self.tables),
+                "prev_same_comp": np.array(prev_same_component(sched),
+                                           dtype=np.int32)}
 
     def load_state(self, state: EncoderState) -> None:
         """Compute with ``state`` from here on."""
         if int(state.quant.min()) < 1 or state.quant.shape != (self.n_blocks,
                                                                64):
             raise ValueError("encoder quant must be (n_blocks, 64), >= 1")
+        if state.prev_same_comp.shape != (self.blocks_per_segment,):
+            raise ValueError("prev_same_comp must be (blocks_per_segment,)")
         self.state = state
         self._comp_sched = state.comp_idx[:self.blocks_per_segment] \
             .contiguous()
         self._valid = {}
 
     # -- planes → quantized coefficients ------------------------------------
-    def load_planes(self, planes) -> list[np.ndarray]:
-        """Blit (y, u, v) uint8 arrays into zero-padded scan planes."""
+    def load_planes(self, frame) -> list[np.ndarray]:
+        """Blit a Frame, a single Plane or bare (y, u, v) uint8 arrays
+        into zero-padded scan planes."""
+        if isinstance(frame, Frame):
+            sources = [frame.y.data, frame.u.data, frame.v.data]
+        elif isinstance(frame, Plane):
+            sources = [frame.data]
+        else:
+            sources = frame
         out = []
-        for s, src in zip(self.scans, planes):
+        for s, src in zip(self.scans, sources):
             src = np.asarray(src, dtype=np.uint8)
             padded = np.zeros((s.height, s.width), dtype=np.uint8)
             h = min(src.shape[0], s.height)
@@ -606,15 +671,42 @@ class JpegEncoderSession:
                                      self.device)
         return self._valid[f]
 
+    def _pack_route(self, S: int, max_seg_bytes: int) -> str:
+        """The packer of a dispatch of S segments at a raw byte budget:
+        "fused" (K4), "split" (K9 + K8) or "gather" (plain torch). A
+        function of (B, budget, S), so a rung of the budget ladder may
+        change route."""
+        B = self.blocks_per_segment
+        how = self.device_pack
+        if how == "auto":
+            wide = pack_stuff.max_lane_chunk(B, max_seg_bytes) >= 128
+            how = "pallas" if wide and S >= 64 else "xla"
+        if how == "xla":
+            return "gather"
+        return "fused" if B <= pack_stuff.FUSED_MAX_BLOCKS else "split"
+
     def _pack_graph(self, qc_seg: torch.Tensor, f: int, max_seg_bytes: int):
         """(f·sp, B·64) int32 coefficients → (bufs (f, cap) uint8, totals
-        (f,), max segment length, overflow) — K4 then the wire assembly
-        (the single-device form of the reference's _pack_graph)."""
-        _B, _nb, n_seg, sp, _np, m_out, cap = self._enc_geometry(
+        (f,), max segment length, overflow) — the routed entropy encode
+        then the wire assembly (the single-device form of the reference's
+        _pack_graph)."""
+        B, n_blocks, n_seg, sp, n_padded, m_out, cap = self._enc_geometry(
             max_seg_bytes)
-        out, lens, overflow = encode_segments(
-            qc_seg, self._valid_batch(f), self._comp_sched, self.state.dctab,
-            self.state.actab, m_out=m_out)
+        route = self._pack_route(qc_seg.shape[0], max_seg_bytes)
+        if route == "fused":
+            out, lens, overflow = encode_segments(
+                qc_seg, self._valid_batch(f), self._comp_sched,
+                self.state.dctab, self.state.actab, m_out=m_out)
+        else:
+            fn = (pack_stuff.encode_segments_split if route == "split"
+                  else gather_pack.encode_segments_device)
+            st = self.state
+            out, lens, overflow = fn(
+                qc_seg.view(-1, 64), self._comp_sched.repeat(f * sp),
+                st.prev_same_comp, st.dctab, st.actab, blocks_per_segment=B,
+                max_seg_bytes=max_seg_bytes,
+                valid=(self._valid_batch(f).view(-1)
+                       if n_padded != n_blocks else None))
         bufs, totals = assemble_frames(out, lens, frames=f, n_seg=n_seg,
                                        cap=cap)
         max_len = lens.view(f, sp)[:, :n_seg].max()
@@ -699,18 +791,114 @@ class JpegEncoderSession:
         hdr = self._header_bytes
         return [b"".join((hdr, body, _EOI)) for body in bodies]
 
+    def encode_device(self, frame) -> bytes:
+        """One Frame (or bare planes) → JPEG bytes with the block numerics
+        and the entropy packing on the device: only planes go up and the
+        assembled wire bytes come back."""
+        return self.encode_device_batch([frame])[0]
+
     def encode_planes_device(self, planes) -> bytes:
         """(y, u, v) uint8 arrays (zero-padded to the scan planes) → JPEG
         bytes."""
         return self.encode_device_batch([planes])[0]
 
-    def encode_device_batch(self, frames: list) -> list[bytes]:
-        """Frames as (y, u, v) uint8 arrays → JPEG bytes each: one batched
-        device pass for numerics, entropy and wire assembly."""
+    def _stack_frames(self, frames: list) -> list[torch.Tensor]:
+        """Frames → per-scan (F, H, W) uint8 stacks on the device."""
         planes = [self.load_planes(f) for f in frames]
-        stacked = [_upload(np.stack([p[i] for p in planes]), self.device)
-                   for i in range(len(self.scans))]
-        return self._encode_stacked(stacked)
+        return [_upload(np.stack([p[i] for p in planes]), self.device)
+                for i in range(len(self.scans))]
+
+    def encode_device_batch(self, frames: list) -> list[bytes]:
+        """Frames (Frame objects or (y, u, v) uint8 arrays) → JPEG bytes
+        each: one batched device pass for numerics, entropy and wire
+        assembly."""
+        return self._encode_stacked(self._stack_frames(frames))
+
+    # -- device quantization + per-frame entropy ----------------------------
+    def _quantize_stacked(self, stacked) -> np.ndarray:
+        """Per-scan (f, H, W) uint8 stacks on the device → (f, n_blocks,
+        64) quantized coefficients on the host. With sparse transfer only
+        the occupancy bitmask and the nonzeros cross the link; a value
+        budget that proves too small falls back to dense for this call and
+        doubles for later ones."""
+        f = stacked[0].shape[0]
+        n = f * self.n_blocks
+        qc = self._encode_qc_batch(stacked)
+        if self._sparse:
+            cap = self._cap_per_block * n
+            mask, values, nnz = sparse.pack_device(qc, cap)
+            nnz = int(nnz)
+            if nnz <= cap:
+                self._adapt_cap(nnz, n)
+                return sparse.unpack_host(
+                    mask.cpu().numpy(), values[:nnz].cpu().numpy(), nnz,
+                    n).reshape(f, self.n_blocks, 64)
+            self._cap_per_block = min(64, max(1, self._cap_per_block) * 2)
+        # quantized coefficients are bounded by ±1024: int16 halves the
+        # download
+        return qc.to(torch.int16).cpu().numpy().reshape(f, self.n_blocks,
+                                                        64)
+
+    def quantize_device(self, planes) -> np.ndarray:
+        """Padded planes (numpy arrays or tensors) → (n_blocks, 64)
+        quantized coefficients on the host (int16 dense, int32 sparse)."""
+        stacked = [(p if isinstance(p, torch.Tensor)
+                    else torch.from_numpy(np.ascontiguousarray(p)))
+                   .to(self.device)[None] for p in planes]
+        return self._quantize_stacked(stacked)[0]
+
+    def _adapt_cap(self, nnz: int, total_blocks: int) -> None:
+        """Shrink the sparse value budget toward the observed density
+        (power-of-two buckets, 2x headroom), once: content density is
+        stable within a session. Growth happens only on overflow."""
+        if self._cap_locked:
+            return
+        per_block = max(2, -(-2 * nnz // total_blocks))
+        target = 1 << (per_block - 1).bit_length()
+        if target < self._cap_per_block:
+            self._cap_per_block = target
+        self._cap_locked = True
+
+    def _assemble(self, segments: list[bytes]) -> bytes:
+        """Header + byte-aligned segments interleaved with RSTn + EOI."""
+        return b"".join((self._header_bytes,
+                         entropy_scan.join_segments(segments), _EOI))
+
+    def _entropy_frame(self, qcoefs: np.ndarray) -> bytes:
+        """One frame's (n_blocks, 64) coefficients → JPEG bytes by
+        ``self.entropy``."""
+        args = (qcoefs, self.comp_idx, self.blocks_per_segment, self.tables)
+        if self.entropy == "tpu":
+            return self._assemble(gather_pack.encode_scan_tpu(
+                *args, device=self.device))
+        # "native" is the reference's C++ coder; here it is the host coder
+        return self._assemble(entropy_scan.encode_scan(*args))
+
+    def encode_planes(self, planes) -> bytes:
+        """Padded planes (numpy arrays or tensors) → JPEG bytes: device
+        quantization, the coefficient download, then the entropy coder of
+        ``self.entropy``."""
+        return self._entropy_frame(self.quantize_device(planes))
+
+    def encode(self, frame) -> bytes:
+        return self.encode_planes(self.load_planes(frame))
+
+    def encode_batch(self, frames: list) -> list[bytes]:
+        """Encode many frames: one batched device call for the block
+        numerics and one download, then the entropy coder per frame on
+        worker threads."""
+        import concurrent.futures
+
+        q_batch = self._quantize_stacked(self._stack_frames(frames))
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(8, len(frames))) as pool:
+            return list(pool.map(self._entropy_frame, q_batch))
+
+    def encode_iter(self, frames, depth: int = 2):
+        """Pipelined streaming encode: an ordered generator of JPEG byte
+        strings with up to ``depth`` frames in flight — frame i's entropy
+        coding overlaps frame i+1's device quantization and download."""
+        return _pipelined_map(self.encode, frames, depth)
 
 
 def _parameters_maker(frame_hdr):
@@ -785,3 +973,16 @@ class JpegTranscodeSession:
         for outs in _pipelined_map(self.transcode_batch,
                                    _chunked(entropy_iter, batch), depth):
             yield from outs
+
+
+def encode_jpeg(frame: Frame, quality: int = 75,
+                subsampling: ChromaSubsampling = ChromaSubsampling.C420,
+                restart_interval: int = 0, device=None) -> bytes:
+    """One-shot encode of a Frame."""
+    maker = {ChromaSubsampling.C420: Parameters.c420,
+             ChromaSubsampling.C422: Parameters.c422,
+             ChromaSubsampling.C440: Parameters.c440,
+             ChromaSubsampling.C444: Parameters.c444}[subsampling]
+    params = maker(frame.width, frame.height, quality)
+    return JpegEncoderSession(params, restart_interval,
+                              device=device).encode(frame)

@@ -18,7 +18,10 @@ Encoder arrays:
   perm (n_blocks,) int32: stream block i is block perm[i] of the
     scan-major concatenation of every scan's raster blocks;
   gather [(take, dest, nby, nbx)] per scan (perm's per-scan parts);
-  tables (dc_bits (C, 12), dc_len, ac_bits (C, 16, 11), ac_len) int32.
+  tables (dc_bits (C, 12), dc_len, ac_bits (C, 16, 11), ac_len) int32;
+  prev_same_comp (blocks_per_segment,) int32: for every position of a
+    segment's block schedule, the previous position of the same component
+    in the segment, or -1 (the split encoder's DC predictor gather).
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ class EncoderState:
     tables: tuple                # numpy (dc_bits, dc_len, ac_bits, ac_len)
     dctab: torch.Tensor          # (C·12,) packed (code << 5 | len)
     actab: torch.Tensor          # (C·176,)
+    prev_same_comp: torch.Tensor  # (blocks_per_segment,) int32
 
     @property
     def plane_dims(self) -> list:
@@ -93,7 +97,8 @@ class EncoderState:
             comp_idx=_t(arrays["comp_idx"], device),
             perm=_t(arrays["perm"], device, torch.int64),
             gather=list(arrays["gather"]), tables=tuple(arrays["tables"]),
-            dctab=_t(dctab, device), actab=_t(actab, device))
+            dctab=_t(dctab, device), actab=_t(actab, device),
+            prev_same_comp=_t(arrays["prev_same_comp"], device))
 
     def to_numpy(self) -> dict:
         return {
@@ -102,6 +107,7 @@ class EncoderState:
             "perm": self.perm.cpu().numpy().astype(np.int32),
             "gather": self.gather,
             "tables": self.tables,
+            "prev_same_comp": self.prev_same_comp.cpu().numpy(),
         }
 
 
