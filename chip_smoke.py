@@ -19,13 +19,15 @@
 
 Phases (any failure ends the run with a nonzero exit):
   1. card      — name and power limit (nvidia-smi);
-  2. build     — nvcc builds K1-K9 from video_coding_tpu_torch/csrc;
+  2. build     — nvcc builds K1-K9 and the decode lookup table (LUT) from
+                 video_coding_tpu_torch/csrc;
   3. sources   — 16 synthetic 1080p frames encoded on the card at q90 with
                  ri=1, ri=0 and ri=120; one frame of each decoded back and
                  checked by PSNR;
-  4. kernels   — K1-K4 against their plain PyTorch versions on the card at
-                 the transcode's shapes (exact equality), timed with CUDA
-                 events beside their bounds;
+  4. kernels   — K1-K4 and the LUT against their plain PyTorch versions on
+                 the card at the transcode's shapes (exact equality), timed
+                 with CUDA events beside their bounds; the LUT's share of
+                 entries that go to level 2 or to the range match;
   5. transcode — transcode_batch (q75, ri=1, F=16) with the launch counts
                  reset just before and read just after; bytes equal to the
                  same session on the CPU for 2 frames; every output parses;
@@ -37,9 +39,17 @@ Phases (any failure ends the run with a nonzero exit):
                  the CPU, and equal across the four routes;
   7. decode kernels — K1 with hooks, K5, K6, K7 on the arguments the paths
                  gave them, against their plain versions (exact), K7 also
-                 against K1; timed beside their bounds;
+                 against K1; timed beside their bounds; K6's sync rounds,
+                 subsequences, threads and phase cycles; K1 (both forms),
+                 K6 and the lookup table against their plain versions on
+                 adversarial inputs (random bytes, all-zero and all-0xFF
+                 rows, one symbol a block, a schedule with no short
+                 period, short rows, seg_blocks 0 and B, malformed range
+                 tables); K1 and K6 timed at other CTA sizes and K6 at
+                 other subsequence lengths;
   8. rates     — frames a second of decode_device_batch_iter on A and B
-                 (median of 3 windows) and the host index scan's time;
+                 (median of 3 windows), one path B dispatch under the
+                 profiler, and the host index scan's time;
   9. path E    — one warming dispatch, then encode_device_batch with the
                  counts reset before and read after: K3, K9 and K8 once
                  each, K4 never; bytes equal to the same session on the CPU
@@ -172,6 +182,124 @@ class Spy:
         setattr(self.fn, name, value)
 
 
+def malformed_tables(dev, seed: int):
+    """Range tables no DHT produces: overlapping and inverted ranges,
+    negative offsets, codes up to 136 bits long."""
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, 1 << 16, (6, 16)).astype(np.int32)
+    hi = (lo + rng.integers(-500, 9000, (6, 16))).astype(np.int32)
+    off = rng.integers(-50, 400, (6, 16)).astype(np.int32)
+    values = rng.integers(0, 1000, 384).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (lo, hi, off, values))
+
+
+def one_symbol_blocks(dec, n: int) -> np.ndarray:
+    """A luma segment of n all-zero blocks: DC category 0 and EOB, block
+    after block (one symbol a block past the DC)."""
+    def code(lut, value):
+        idx = next(i for i in range(1 << lut.max_bits)
+                   if lut.lengths[i] and lut.data[i] == value)
+        k = int(lut.lengths[idx])
+        return format(idx >> (lut.max_bits - k), f"0{k}b")
+
+    luma = dec.components[0]
+    bits = (code(luma.dc_tab, 0) + code(luma.ac_tab, 0)) * n
+    bits += "1" * (-len(bits) % 8)
+    return np.frombuffer(int(bits, 2).to_bytes(len(bits) // 8, "big"),
+                         np.uint8)
+
+
+def decode_redesign_checks(k1, captured, dec) -> None:
+    """Phase 7's look into the redesigned K6 and K1: K6's sync statistics
+    on path B, and both (with the lookup table) against their plain
+    versions on adversarial inputs. Any difference raises."""
+    dev = dec.device
+    a6, k6 = captured["K6"]
+    k1.decode_segments_streamed(*a6, **k6)
+    stats = k1.decode_segments_streamed.stats.to(torch.float64).cpu()
+    S6 = a6[0].shape[0]
+    log(f"K6 on path B: {S6} rows, {int(stats[:, 2].sum())} threads a "
+        f"launch ({int(stats[0, 2])} a row), subsequences of "
+        f"{k1.STREAMED_SUB_BITS} bits, {int(stats[:, 1].sum())} in all")
+    for i, name in enumerate(k1.STREAMED_STATS[:2]):
+        log(f"  K6 {name}: mean {float(stats[:, i].mean()):.1f}, max "
+            f"{float(stats[:, i].max()):.0f}")
+
+    def same(name, got, ref):
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"{name}: kernel differs from its plain "
+                               "version")
+
+    rng = np.random.default_rng(SEED)
+    real = (dec.state.lo, dec.state.hi, dec.state.offset, dec.state.values)
+    bad = malformed_tables(dev, SEED)
+    same("LUT on malformed tables", k1.decode_lut(*bad),
+         k1.decode_lut_plain(*bad))
+    # K6: random bytes, all-zero and all-0xFF rows, one symbol a block,
+    # short rows; seg_blocks 0 and B; a periodic schedule and one with no
+    # short period; real and malformed tables; two subsequence lengths
+    S, L, B = 64, 2048, 120
+    rows = rng.integers(0, 256, (S, L)).astype(np.uint8)
+    rows[1], rows[2] = 0, 0xFF
+    rows[3] = 0
+    ones = one_symbol_blocks(dec, B)
+    rows[3, :len(ones)] = ones
+    for s in range(4, S, 2):
+        rows[s, rng.integers(0, L):] = 0
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    segb[:6] = (B, B, B, B, 0, B)
+    up = (torch.from_numpy(rows).to(dev), torch.from_numpy(segb).to(dev))
+    kw = dict(blocks_per_segment=B, n_components=3)
+    for sched_name, sched in (
+            ("periodic", np.resize(dec.comp_idx[:6], B)),
+            ("no short period", rng.integers(0, 3, B))):
+        sched = torch.from_numpy(sched.astype(np.int32)).to(dev)
+        for tab_name, tabs in (("real", real), ("malformed", bad)):
+            ref = k1.decode_segments_streamed_plain(*up, sched, *tabs, **kw)
+            for u in (k1.STREAMED_SUB_BITS, 64):
+                saved, k1.STREAMED_SUB_BITS = k1.STREAMED_SUB_BITS, u
+                try:
+                    got = k1.decode_segments_streamed(*up, sched, *tabs,
+                                                      **kw)
+                finally:
+                    k1.STREAMED_SUB_BITS = saved
+                same(f"K6 {sched_name} {tab_name} U={u}", got, ref)
+                rounds = k1.decode_segments_streamed.stats[:, 0]
+                log(f"K6 adversarial rows ({sched_name} schedule, "
+                    f"{tab_name} tables, U={u}): exact, sync rounds up to "
+                    f"{int(rounds.max())}")
+    # K1 with and without hooks: random lanes, some past the buffer
+    S, B = 500, 24
+    lens = rng.integers(0, 700, S).astype(np.int32)
+    starts = rng.integers(0, 4000, S).astype(np.int32)
+    flat = rng.integers(0, 256, 4803).astype(np.uint8)
+    lens[0] = 4803 - starts[0] + 40
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    segb[:2] = (0, B)
+    sched = torch.from_numpy(
+        np.resize(dec.comp_idx[:6], B).astype(np.int32)).to(dev)
+    up = [torch.from_numpy(x).to(dev) for x in (flat, starts, lens, segb)]
+    hooks = dict(
+        init_bitpos=torch.from_numpy(
+            rng.integers(0, 64, S).astype(np.int32)).to(dev),
+        init_dc=torch.from_numpy(
+            rng.integers(-40000, 40000, (S, 3)).astype(np.int32)).to(dev))
+    for tab_name, tabs in (("real", real), ("malformed", bad)):
+        for hook_kw in ({}, hooks):
+            kw = dict(blocks_per_segment=B, n_components=3, **hook_kw)
+            same(f"K1 {tab_name} hooks={bool(hook_kw)}",
+                 k1.decode_flat(*up, sched, *tabs, **kw),
+                 k1.decode_flat_plain(*up, sched, *tabs, **kw))
+            # a view that starts 1..3 bytes past a word boundary
+            for shift in (1, 2, 3):
+                view = (up[0][shift:], *up[1:])
+                same(f"K1 {tab_name} hooks={bool(hook_kw)} flat[{shift}:]",
+                     k1.decode_flat(*view, sched, *tabs, **kw),
+                     k1.decode_flat_plain(*view, sched, *tabs, **kw))
+    log("K1 (with and without hooks) and the LUT: exact on random lanes, "
+        "unaligned views and malformed tables")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -289,6 +417,23 @@ def main() -> int:
                  lambda: k1.decode_flat_plain(*k1_args, **k1_kw),
                  k1_bytes, 40.0 * n_sym))
 
+    tabs = (st.lo, st.hi, st.offset, st.values)
+    lut = k1.decode_lut(*tabs)
+    err["LUT"] = compare("LUT", lut, k1.decode_lut_plain(*tabs))
+    T = st.lo.shape[0]
+    level1 = lut[:T << k1.LUT_BITS].to(torch.int32) & 0xFFFF
+    n_pooled = int(((level1 & 0xC000) == k1.LUT_POOLED).sum())
+    n_fallback = int((level1 == k1.LUT_FALLBACK).sum())
+    log(f"LUT: {T} rows of {1 << k1.LUT_BITS}; {n_pooled} entries "
+        f"({n_pooled / level1.numel():.2%}) go to a level-2 block, "
+        f"{n_fallback} to the range match")
+    rows.append(("LUT", "video_coding_tpu_torch/csrc/huffman_lut.cu",
+                 "video_coding_tpu/entropy/pallas_decode.py:378",
+                 lambda: k1.decode_lut(*tabs),
+                 lambda: k1.decode_lut_plain(*tabs),
+                 sum(t.numel() * 4 for t in tabs) + lut.numel() * 2,
+                 T * 65536 * 3 * 16.0))
+
     pool = coefs.view(-1, 64)
     qseg = dec._quant_seg
     pix = datapath.decode_datapath(pool, qseg)
@@ -367,7 +512,8 @@ def main() -> int:
                 "K6": (k1.decode_segments_streamed, "launches"),
                 "K7": (k1.decode_flat_staged, "launches"),
                 "K8": (k8.pack_stuff, "launches"),
-                "K9": (k9.table_lookup, "launches")}
+                "K9": (k9.table_lookup, "launches"),
+                "LUT": (k1.decode_lut, "launches")}
 
     def counted(call, must_launch):
         """Run ``call`` with every launch count set to 0 just before and
@@ -383,8 +529,8 @@ def main() -> int:
         return out, seen
 
     outs, seen = counted(lambda: trans.transcode_batch(payloads),
-                         ("K1", "K2", "K3", "K4"))
-    launches = {k: seen[k] for k in ("K1", "K2", "K3", "K4")}
+                         ("K1", "K2", "K3", "K4", "LUT"))
+    launches = {k: seen[k] for k in ("K1", "K2", "K3", "K4", "LUT")}
     log(f"main path launches (one transcode_batch, F={FRAMES}): {launches}")
 
     def parses(o: bytes) -> None:
@@ -438,13 +584,14 @@ def main() -> int:
             call()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        # the profiler's raw activity list: every kernel and copy on the
+        # card, whether or not it was matched to a host-side op
         by_name: dict[str, float] = {}
-        for e in prof.events():
-            if getattr(e, "device_type", None) == DeviceType.CUDA:
-                key = e.name.replace("(anonymous namespace)::", "") \
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                key = e.name().replace("(anonymous namespace)::", "") \
                     .split("(")[0][:48]
-                by_name[key] = by_name.get(key, 0.0) \
-                    + e.time_range.elapsed_us() / 1e3
+                by_name[key] = by_name.get(key, 0.0) + e.duration_ns() / 1e6
         busy_ms = sum(by_name.values())
         log(f"breakdown: one {label} (F={FRAMES}) {wall_ms:.2f} ms wall "
             f"under the profiler, device busy {busy_ms:.3f} ms "
@@ -483,7 +630,8 @@ def main() -> int:
                 call = lambda: [sess.decode_device_e2e(pay_p[0])]  # noqa
             else:
                 call = lambda: sess.decode_device_batch(pay_p)  # noqa: E731
-            got, seen = counted(call, (kname, "K2"))
+            got, seen = counted(call, (kname, "K2") + (
+                ("LUT",) if kname in ("K1+hooks", "K6") else ()))
             wall = time.perf_counter() - t0
         finally:
             setattr(k1, wname, wrapper)
@@ -546,6 +694,7 @@ def main() -> int:
                      nbytes, 40.0 * n_sym))
         del out
     time_rows(rows, 1)
+    decode_redesign_checks(k1, captured, dec)
 
     # 8. rates of the pipelined decode on A and B, and the host index scan
     def fps(sess, pay, n):
@@ -564,6 +713,12 @@ def main() -> int:
             f"F={FRAMES}: median {w[1]:.2f} frames/s (windows "
             f"{', '.join(f'{x:.2f}' for x in w)}; {n} frames a window) "
             f"on {smi}")
+    t0 = time.perf_counter()
+    _destuff_parts(pay_b, sessions["B"].n_segments)
+    breakdown("decode_device_batch (path B)",
+              lambda: sessions["B"].decode_device_batch(pay_b),
+              f"; host destuff of the {FRAMES} frames alone "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
     dec_a = sessions["A"]
     flat_a, _lens = hscan.destuff_flat(pay_a[0])
     t0 = time.perf_counter()
@@ -665,7 +820,7 @@ def main() -> int:
     trans_f = JpegTranscodeSession(header, quality=75, restart_interval=RI_E)
     trans_f.transcode_batch(payloads)          # warm + lock the ladder
     outs_f, seen = counted(lambda: trans_f.transcode_batch(payloads),
-                           ("K1", "K2", "K3", "K9", "K8"))
+                           ("K1", "K2", "K3", "K9", "K8", "LUT"))
     if seen["K4"]:
         raise RuntimeError(f"path F launched K4: {seen}")
     log(f"path F: transcode_batch ri=1 -> ri={RI_E}, launches {seen}; "

@@ -289,3 +289,142 @@ def test_encoder_routes_on_card_match_cpu(gpu, ri, pack, kernel):
     ref = JpegEncoderSession(params, ri, device="cpu", device_pack=pack) \
         .encode_device_batch(frames)
     assert got == ref
+
+
+def _malformed_tables(gpu, seed=1):
+    """Range tables no DHT produces: overlapping and inverted ranges,
+    negative offsets (codes up to 136 bits long)."""
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, 1 << 16, (6, 16)).astype(np.int32)
+    hi = (lo + rng.integers(-500, 9000, (6, 16))).astype(np.int32)
+    off = rng.integers(-50, 400, (6, 16)).astype(np.int32)
+    values = rng.integers(0, 1000, 384).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(gpu) for a in (lo, hi, off, values))
+
+
+@pytest.mark.parametrize("malformed", [False, True])
+def test_decode_lut_kernel_matches_plain(gpu, malformed):
+    tabs = _malformed_tables(gpu) if malformed else _tables(gpu)[1]
+    before = huffman_decode.decode_lut.launches
+    got = huffman_decode.decode_lut(*tabs)
+    assert huffman_decode.decode_lut.launches == before + 1
+    assert torch.equal(got, huffman_decode.decode_lut_plain(*tabs))
+
+
+def _one_symbol_blocks(dec, n: int) -> np.ndarray:
+    """A luma segment of n blocks of all-zero coefficients: DC category 0
+    and EOB, block after block."""
+    def code(lut, value):
+        idx = next(i for i in range(1 << lut.max_bits)
+                   if lut.lengths[i] and lut.data[i] == value)
+        k = int(lut.lengths[idx])
+        return format(idx >> (lut.max_bits - k), f"0{k}b")
+
+    luma = dec.components[0]
+    bits = (code(luma.dc_tab, 0) + code(luma.ac_tab, 0)) * n
+    bits += "1" * (-len(bits) % 8)
+    return np.frombuffer(int(bits, 2).to_bytes(len(bits) // 8, "big"),
+                         np.uint8)
+
+
+# rows that take several sync rounds (random bytes, short subsequences),
+# one symbol a block, a schedule with no short period, rows shorter than
+# L, seg_blocks of 0 and of B; rows too long to stage in shared memory,
+# at unaligned starts
+@pytest.mark.parametrize("case,sub_bits", [
+    ("random", 1024), ("random", 64), ("zero_blocks", 1024),
+    ("zero_blocks", 64), ("no_period", 64), ("short_rows", 256),
+    ("malformed", 64), ("long_rows", 1024)])
+def test_streamed_kernel_on_adversarial_rows(gpu, monkeypatch, case,
+                                             sub_bits):
+    monkeypatch.setattr(huffman_decode, "STREAMED_SUB_BITS", sub_bits)
+    dec, tabs = _tables(gpu)
+    rng = np.random.default_rng(sub_bits)
+    S, L, B = 64, 1024, 240
+    if case == "long_rows":
+        S, L = 16, 16401
+    rows = rng.integers(0, 256, (S, L)).astype(np.uint8)
+    sched = np.resize(dec.comp_idx[:6], B)
+    if case == "zero_blocks":
+        data = _one_symbol_blocks(dec, B)
+        rows[:] = 0
+        rows[:, :len(data)] = data
+        sched = np.zeros(B, np.int64)
+    elif case == "no_period":
+        sched = rng.integers(0, 3, B)
+    elif case == "short_rows":
+        for s in range(S):
+            rows[s, rng.integers(0, L):] = 0
+    elif case == "malformed":
+        tabs = _malformed_tables(gpu)
+    rows[1] = 0
+    rows[2] = 0xFF
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    segb[:6] = (B, B, B, 0, B, 1)
+    args = (torch.from_numpy(rows).to(gpu), torch.from_numpy(segb).to(gpu),
+            torch.from_numpy(sched.astype(np.int32)).to(gpu), *tabs)
+    kw = dict(blocks_per_segment=B, n_components=3)
+    got = huffman_decode.decode_segments_streamed(*args, **kw)
+    assert torch.equal(got, huffman_decode.decode_segments_streamed_plain(
+        *args, **kw))
+    rounds, n_sub = huffman_decode.decode_segments_streamed.stats.cpu().T[:2]
+    assert int(rounds[3]) == 0 and int(rounds.max()) >= 2
+    assert int(n_sub.max()) <= -(-(8 * L + 32) // sub_bits)
+
+
+@pytest.mark.parametrize("malformed", [False, True])
+@pytest.mark.parametrize("hooks", [False, True])
+def test_flat_kernel_on_random_lanes(gpu, hooks, malformed):
+    """K1 with and without its hooks on random lanes (one past the
+    buffer's end), with the session's tables and with range tables whose
+    codes reach 136 bits (the range match and magnitude peeks past the
+    64-bit window)."""
+    tabs = _malformed_tables(gpu, seed=2) if malformed else _tables(gpu)[1]
+    rng = np.random.default_rng(7)
+    S, B = 400, 24
+    lens = rng.integers(0, 700, S).astype(np.int32)
+    starts = rng.integers(0, 4000, S).astype(np.int32)
+    flat = rng.integers(0, 256, 4803).astype(np.uint8)
+    lens[0] = 4803 - starts[0] + 40          # past the buffer's end
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    sched = torch.from_numpy(rng.integers(0, 3, B).astype(np.int32)).to(gpu)
+    up = [torch.from_numpy(a).to(gpu) for a in (flat, starts, lens, segb)]
+    kw = dict(blocks_per_segment=B, n_components=3)
+    if hooks:
+        kw["init_bitpos"] = torch.from_numpy(
+            rng.integers(0, 64, S).astype(np.int32)).to(gpu)
+        kw["init_dc"] = torch.from_numpy(
+            rng.integers(-40000, 40000, (S, 3)).astype(np.int32)).to(gpu)
+    args = (*up, sched, *tabs)
+    assert torch.equal(huffman_decode.decode_flat(*args, **kw),
+                       huffman_decode.decode_flat_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("hooks", [False, True])
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_flat_kernel_on_unaligned_view(gpu, shift, hooks):
+    """K1 reads its buffer in aligned words: a view that starts 1..3 bytes
+    past a word boundary (``buf[shift:]``, a row slice of a padded matrix)
+    decodes as the plain version does."""
+    dec, tabs = _tables(gpu)
+    rng = np.random.default_rng(shift)
+    S, B = 300, 24
+    lens = rng.integers(0, 700, S).astype(np.int32)
+    starts = rng.integers(0, 4000, S).astype(np.int32)
+    flat = rng.integers(0, 256, 4803 + shift).astype(np.uint8)
+    lens[0] = 4803 - starts[0] + 40          # past the buffer's end
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    sched = torch.from_numpy(
+        np.resize(dec.comp_idx[:6], B).astype(np.int32)).to(gpu)
+    view = torch.from_numpy(flat).to(gpu)[shift:]
+    assert view.data_ptr() % 4 == shift
+    up = [view] + [torch.from_numpy(a).to(gpu) for a in (starts, lens, segb)]
+    kw = dict(blocks_per_segment=B, n_components=3)
+    if hooks:
+        kw["init_bitpos"] = torch.from_numpy(
+            rng.integers(0, 64, S).astype(np.int32)).to(gpu)
+        kw["init_dc"] = torch.from_numpy(
+            rng.integers(-40000, 40000, (S, 3)).astype(np.int32)).to(gpu)
+    args = (*up, sched, *tabs)
+    assert torch.equal(huffman_decode.decode_flat(*args, **kw),
+                       huffman_decode.decode_flat_plain(*args, **kw))

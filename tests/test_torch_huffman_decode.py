@@ -311,3 +311,108 @@ def test_saturation_differs_between_k1_and_k5():
     assert int(k5[0, -1, 0]) == 2047 * nblk > 32767
     assert int(k1[0, -1, 0]) == 32767
     assert torch.equal(k1.clamp(-32768, 32767), k5.clamp(-32768, 32767))
+
+
+# --- facts the redesigned K6 and K1 rely on ----------------------------------
+
+def _session_tables(sub: str = "420"):
+    dec, _segbytes, _segb = _segment_inputs(sub, 64, 48, 75, 5, seed=11)
+    return dec, [_t(a) for a in tpu_decode.range_tables(dec.tables)]
+
+
+# K6 decodes a row in parallel from states that carry no symbol count: the
+# per-block cap of 134 symbols must never bind (a block ends within 64
+# symbols; a failed AC match reads as EOB)
+@pytest.mark.parametrize("kind", ["random", "zeros", "ones", "short"])
+def test_streamed_block_cap_never_binds(kind):
+    dec, tabs = _session_tables()
+    rng = np.random.default_rng(21)
+    S, L, B = 6, 130, 40
+    rows = rng.integers(0, 256, (S, L)).astype(np.uint8)
+    if kind == "zeros":
+        rows[:] = 0
+    elif kind == "ones":
+        rows[:] = 0xFF
+    elif kind == "short":
+        for s in range(S):
+            rows[s, rng.integers(0, L // 2):] = 0
+    segb = torch.tensor([B, B, 7, 0, B, 25], dtype=torch.int32)
+    sched = torch.from_numpy(np.resize(dec.comp_idx[:6], B).astype(np.int32))
+    kw = dict(blocks_per_segment=B, n_components=3, saturate=False,
+              total_cap=None)
+    peek = huffman_decode._window_peek(_t(rows), 2, 8)
+    capped = huffman_decode._symbol_loop_plain(
+        peek, segb, sched, *tabs, block_cap=huffman_decode.BLOCK_STEPS, **kw)
+    free = huffman_decode._symbol_loop_plain(peek, segb, sched, *tabs,
+                                             block_cap=None, **kw)
+    assert torch.equal(capped, free)
+
+
+def _match_np(lo, hi, off, values, t: int, w: np.ndarray):
+    """The range match, written out again in numpy: (code_len, data) of
+    every window in ``w`` against table row t."""
+    code_len = np.zeros(w.shape, np.int64)
+    lo_sel = np.zeros(w.shape, np.int64)
+    off_sel = np.zeros(w.shape, np.int64)
+    for l in range(16):
+        hit = (w >= lo[t, l]) & (w < hi[t, l])
+        code_len += np.where(hit, l + 1, 0)
+        lo_sel += np.where(hit, lo[t, l], 0)
+        off_sel += np.where(hit, off[t, l], 0)
+    idx = off_sel + ((w - lo_sel) >> (16 - np.clip(code_len, 1, 16)))
+    data = values[np.clip(idx, 0, len(values) - 1)] & 0xFF
+    return code_len, np.where(code_len > 0, data, 0)
+
+
+def _malformed_tables(seed: int):
+    """Range tables no DHT produces: overlapping and inverted ranges,
+    negative and out-of-range offsets."""
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, 1 << 16, (6, 16)).astype(np.int32)
+    hi = (lo + rng.integers(-500, 9000, (6, 16))).astype(np.int32)
+    off = rng.integers(-50, 400, (6, 16)).astype(np.int32)
+    values = rng.integers(0, 1000, 384).astype(np.int32)
+    lo[0] = 0
+    hi[0] = 1 << 16                         # every length matches: len 136
+    return [_t(a) for a in (lo, hi, off, values)]
+
+
+@pytest.mark.parametrize("tables", ["420", "444", "malformed1",
+                                    "malformed2"])
+def test_decode_lut_agrees_with_match_on_every_window(tables):
+    if tables.startswith("malformed"):
+        tabs = _malformed_tables(int(tables[-1]))
+    else:
+        tabs = _session_tables(tables)[1]
+    lut = huffman_decode.decode_lut(*tabs).numpy().astype(np.int64) & 0xFFFF
+    bits = huffman_decode.LUT_BITS
+    span = 1 << (16 - bits)
+    lo, hi, off, values = (a.numpy().astype(np.int64) for a in tabs)
+    T = lo.shape[0]
+    level1 = lut[:T << bits]
+    pool = lut[T << bits:].reshape(huffman_decode.LUT_POOL, span)
+    w = np.arange(1 << 16, dtype=np.int64)
+    res = np.concatenate([
+        np.stack(_match_np(lo, hi, off, values, t, w)) for t in range(T)],
+        axis=1)
+    res = ((res[0] << 8) | res[1]).reshape(T << bits, span)
+    uniform = (res == res[:, :1]).all(1) & (res[:, 0] >> 8 <= 16)
+    # level 1 holds every window's match where the prefix's windows agree
+    # (and the code is at most 16 bits long) ...
+    np.testing.assert_array_equal(level1[uniform], res[uniform, 0])
+    # ... elsewhere the prefixes, in order, take level-2 blocks that hold
+    # each window's match, and the range match once the blocks run out
+    marked = np.flatnonzero(~uniform)
+    n_pool = min(len(marked), huffman_decode.LUT_POOL)
+    np.testing.assert_array_equal(
+        level1[marked[:n_pool]], huffman_decode.LUT_POOLED + np.arange(n_pool))
+    np.testing.assert_array_equal(pool[:n_pool], res[marked[:n_pool]])
+    assert not pool[n_pool:].any()
+    assert (level1[marked[n_pool:]] == huffman_decode.LUT_FALLBACK).all()
+    if tables.startswith("malformed"):
+        # row 0 matches all 16 lengths: 136-bit codes at every window
+        assert len(marked) > huffman_decode.LUT_POOL
+    else:
+        # canonical codes: a few prefixes of codes longer than LUT_BITS,
+        # all in level-2 blocks
+        assert 0 < len(marked) <= huffman_decode.LUT_POOL

@@ -1,14 +1,15 @@
 // Shared device code of the Huffman decode kernels (K1, K5, K6, K7): the
-// canonical-range tables in shared memory, the code match, the magnitude
-// sign extension, and the two per-lane symbol loops —
+// canonical-range tables in shared memory, the code match and the
+// magnitude sign extension; and the two per-lane symbol loops of K5 and K7
+// (K1 and K6 decode through huffman_decode_lut.cuh instead) —
 //
 //   decode_lane_stream   reads a byte stream through a 64-bit bit buffer
-//                        (K1 from global memory, K7 from its staged copy);
-//                        values saturated to int16, one step cap a lane;
+//                        (K7 from its staged copy); values saturated to
+//                        int16, one step cap a lane;
 //   decode_lane_windows  reads 16-bit peeks through the clamped window index
-//                        of a padded lane matrix (K5 byte-granular, K6 at a
-//                        16-bit stride); values not saturated; a step cap a
-//                        lane (K5) or a block (K6).
+//                        of a padded lane matrix (K5, byte-granular); values
+//                        not saturated; a step cap a lane (its cap a block
+//                        served K6 before K6 left this loop).
 //
 // Both are the same automaton: DC code + magnitude, then AC (run, size)
 // codes + magnitudes until EOB or position 63, DC prediction per component.
@@ -153,7 +154,7 @@ __device__ inline void decode_lane_stream(Fetch& fetch, const Tables& tb,
 }
 
 // ---------------------------------------------------------------------------
-// Window form (K5, K6). The reference kernels precompute one 32-bit
+// Window form (K5). The reference kernels precompute one 32-bit
 // big-endian window per `unit` bytes of the lane's row (unit = 1 for K5,
 // 2 for K6), zero-pad the window array to a tile multiple NWp, and read 16
 // bits at a time from window clamp(bitpos / (8·unit), 0, NWp - 1). Inside

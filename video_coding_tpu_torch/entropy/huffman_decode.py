@@ -27,7 +27,13 @@ saturated, and where the symbol cap sits:
 ``decode_segments_streamed`` (K6, ``decode_segments_pallas_bs``)
     as K5 with 16-bit-stride windows, for long segments: whole blocks
     are written out (blocks at or past ``seg_blocks[s]`` as zeros) and
-    the cap is 134 symbols a block.
+    the cap is 134 symbols a block (it never binds: a block ends within
+    64 symbols).
+
+K1 and K6 look symbols up in ``decode_lut``, a two-level table built
+from the range tables on every call (2^``LUT_BITS`` entries per table row,
+then ``LUT_POOL`` blocks for the prefixes of longer codes), and run the
+range match only where the blocks run out.
 
 Every wrapper runs its plain version for CPU tensors and launches its
 CUDA kernel for CUDA tensors (or raises).
@@ -43,6 +49,21 @@ MAX_COMPONENTS = 4
 # K6's symbol cap a block: the reference's (66 + 64)//2 + 2 iterations of
 # two symbols
 BLOCK_STEPS = 2 * ((66 + 64) // 2 + 2)
+
+
+# lookup table: index bits of the 16-bit window at level 1, level-2
+# blocks (one per prefix whose windows disagree), the level-1 entry that
+# names a block (| its slot) and the one that sends a symbol to the range
+# match
+LUT_BITS = 10
+LUT_POOL = 32
+LUT_POOLED = 0x8000
+LUT_FALLBACK = 0xC000
+# K6's subsequence length in bits (one a thread at a time; see
+# csrc/huffman_decode_streamed.cu)
+STREAMED_SUB_BITS = 1024
+# what K6 records for each row
+STREAMED_STATS = ("rounds", "subsequences", "threads")
 
 
 def max_steps(blocks_per_segment: int) -> int:
@@ -104,6 +125,20 @@ def _window_peek(segbytes, unit: int, tile: int):
     return peek16
 
 
+def _match_plain(w16, lo_t, hi_t, off_t, values):
+    """The range match of 16-bit windows ``w16`` (N,) against table rows
+    lo_t/hi_t/off_t (N, 16): (code length, data byte), int64; the sum
+    over matching lengths, (0, 0) where none matches."""
+    lens16 = torch.arange(1, 17, device=w16.device, dtype=torch.int64)
+    valid = (w16[:, None] >= lo_t) & (w16[:, None] < hi_t)
+    code_len = torch.where(valid, lens16, 0).sum(1)
+    lo_sel = torch.where(valid, lo_t, 0).sum(1)
+    off_sel = torch.where(valid, off_t, 0).sum(1)
+    shift = 16 - code_len.clamp(1, 16)
+    idx = (off_sel + ((w16 - lo_sel) >> shift)).clamp(0, values.shape[0] - 1)
+    return code_len, torch.where(code_len > 0, values[idx] & 0xFF, 0)
+
+
 def _symbol_loop_plain(peek16, seg_blocks, comp_sched, lo, hi, offset,
                        values, *, blocks_per_segment: int, n_components: int,
                        saturate: bool, total_cap, block_cap,
@@ -113,12 +148,10 @@ def _symbol_loop_plain(peek16, seg_blocks, comp_sched, lo, hi, offset,
     S = seg_blocks.shape[0]
     B = blocks_per_segment
     C = n_components
-    V = values.shape[0]
     nblk = seg_blocks.to(torch.int64).clamp(max=B)
     sched = comp_sched.to(torch.int64)
     lo, hi, off = (x.to(torch.int64) for x in (lo, hi, offset))
     values = values.to(torch.int64)
-    lens16 = torch.arange(1, 17, device=dev, dtype=torch.int64)
     lane = torch.arange(S, device=dev, dtype=torch.int64)
     zero = torch.zeros(S, device=dev, dtype=torch.int64)
 
@@ -144,14 +177,7 @@ def _symbol_loop_plain(peek16, seg_blocks, comp_sched, lo, hi, offset,
         comp = sched[blk.clamp(0, B - 1)].clamp(0, C - 1)
         t = comp + torch.where(in_ac, C, 0)
         w16 = peek16(bitpos)
-        lo_t, hi_t, off_t = lo[t], hi[t], off[t]
-        valid = (w16[:, None] >= lo_t) & (w16[:, None] < hi_t)
-        code_len = torch.where(valid, lens16, 0).sum(1)
-        lo_sel = torch.where(valid, lo_t, 0).sum(1)
-        off_sel = torch.where(valid, off_t, 0).sum(1)
-        shift = 16 - code_len.clamp(1, 16)
-        idx = (off_sel + ((w16 - lo_sel) >> shift)).clamp(0, V - 1)
-        data = torch.where(code_len > 0, values[idx] & 0xFF, 0)
+        code_len, data = _match_plain(w16, lo[t], hi[t], off[t], values)
         run = torch.where(in_ac, (data >> 4) & 0xF, 0)
         cat = torch.where(in_ac, data & 0xF, data).clamp(max=16)
         code = peek16(bitpos + code_len) >> (16 - cat.clamp(min=1))
@@ -247,6 +273,36 @@ def decode_segments_streamed_plain(segbytes, seg_blocks, comp_sched, lo, hi,
         block_cap=BLOCK_STEPS)
 
 
+def decode_lut_plain(lo, hi, offset, values) -> torch.Tensor:
+    """Plain PyTorch form of the lookup table, int16 (T·2^LUT_BITS +
+    LUT_POOL·2^(16 - LUT_BITS),): level-1 entry (t, i) is
+    (code_len << 8) | data when every 16-bit window whose top LUT_BITS
+    bits are i gives that match in row t (and code_len <= 16); else the
+    prefixes, in order, take level-2 blocks (entry LUT_POOLED | slot; the
+    block holds (code_len << 8) | data of each of the prefix's windows)
+    until they run out, and the rest get LUT_FALLBACK. Unused blocks are
+    zero."""
+    T = lo.shape[0]
+    span = 1 << (16 - LUT_BITS)
+    w16 = torch.arange(1 << 16, device=lo.device, dtype=torch.int64)
+    values = values.to(torch.int64)
+    res = []
+    for t in range(T):
+        lo_t, hi_t, off_t = (x[t].to(torch.int64).expand(1 << 16, 16)
+                             for x in (lo, hi, offset))
+        code_len, data = _match_plain(w16, lo_t, hi_t, off_t, values)
+        res.append(((code_len << 8) | data).view(1 << LUT_BITS, span))
+    res = torch.cat(res)                       # (T·2^LUT_BITS, span)
+    uniform = (res == res[:, :1]).all(1) & (res[:, 0] >> 8 <= 16)
+    level1 = torch.where(uniform, res[:, 0], LUT_FALLBACK)
+    marked = torch.nonzero(~uniform).flatten()
+    pooled = marked[:LUT_POOL]
+    level1[pooled] = LUT_POOLED + torch.arange(len(pooled), device=lo.device)
+    pool = torch.zeros((LUT_POOL, span), dtype=torch.int64, device=lo.device)
+    pool[:len(pooled)] = res[pooled]
+    return torch.cat([level1, pool.flatten()]).to(torch.int16)
+
+
 # --- wrappers ---------------------------------------------------------------
 
 def _check(named, dev) -> None:
@@ -294,6 +350,34 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _lut_buffer(T: int, dev) -> torch.Tensor:
+    return torch.empty(T * (1 << LUT_BITS) + LUT_POOL * (1 << (16 - LUT_BITS)),
+                       dtype=torch.int16, device=dev)
+
+
+def decode_lut(lo: torch.Tensor, hi: torch.Tensor, offset: torch.Tensor,
+               values: torch.Tensor) -> torch.Tensor:
+    """The lookup table of K1 and K6 from the range tables: lo/hi/offset
+    int32 (T, 16), values int32 (V,) → int16 (T·2^LUT_BITS +
+    LUT_POOL·2^(16 - LUT_BITS),), as ``decode_lut_plain``."""
+    T = lo.shape[0]
+    _check([("lo", lo, torch.int32, (T, 16)),
+            ("hi", hi, torch.int32, (T, 16)),
+            ("offset", offset, torch.int32, (T, 16)),
+            ("values", values, torch.int32, (values.shape[0],))], lo.device)
+    if lo.device.type == "cpu":
+        return decode_lut_plain(lo, hi, offset, values)
+    lut = _lut_buffer(T, lo.device)
+    kernels.launch("vct_huffman_lut", lo.data_ptr(), hi.data_ptr(),
+                   offset.data_ptr(), T, values.data_ptr(), values.shape[0],
+                   lut.data_ptr())
+    decode_lut.launches += 1
+    return lut
+
+
+decode_lut.launches = 0
+
+
 def decode_flat(flat: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
                 seg_blocks: torch.Tensor, comp_sched: torch.Tensor,
                 lo: torch.Tensor, hi: torch.Tensor, offset: torch.Tensor,
@@ -315,14 +399,19 @@ def decode_flat(flat: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
                                  lo, hi, offset, values,
                                  blocks_per_segment=B, n_components=C,
                                  init_bitpos=init_bitpos, init_dc=init_dc)
-    out = torch.zeros((S, B, 64), dtype=torch.int32, device=dev)
-    kernels.launch("vct_k1_huffman_decode", flat.data_ptr(),
+    # the kernel's entry point builds the lookup table here first
+    lut = _lut_buffer(lo.shape[0], dev)
+    # every block is written by the kernel (past a lane's end as zeros)
+    out = torch.empty((S, B, 64), dtype=torch.int32, device=dev)
+    kernels.launch("vct_k1_huffman_decode", flat.data_ptr(), flat.shape[0],
                    starts.data_ptr(), lens.data_ptr(), seg_blocks.data_ptr(),
                    S, comp_sched.data_ptr(), B, C, lo.data_ptr(),
                    hi.data_ptr(), offset.data_ptr(), lo.shape[0],
-                   values.data_ptr(), values.shape[0], max_steps(B),
-                   _ptr(init_bitpos), _ptr(init_dc), out.data_ptr())
+                   values.data_ptr(), values.shape[0], lut.data_ptr(),
+                   max_steps(B), _ptr(init_bitpos), _ptr(init_dc),
+                   out.data_ptr())
     decode_flat.launches += 1
+    decode_lut.launches += 1
     if init_bitpos is not None or init_dc is not None:
         decode_flat.hook_launches += 1
     return out
@@ -434,17 +523,33 @@ def decode_segments_streamed(segbytes: torch.Tensor,
         return decode_segments_streamed_plain(
             segbytes, seg_blocks, comp_sched, lo, hi, offset, values,
             blocks_per_segment=B, n_components=C)
-    out = torch.empty((S, B, 64), dtype=torch.int32, device=segbytes.device)
+    if B >= 1 << 24:
+        raise ValueError("blocks_per_segment must be below 2^24")
+    dev = segbytes.device
+    lut = _lut_buffer(lo.shape[0], dev)     # built by the entry point
+    U = STREAMED_SUB_BITS
+    n_sub_max = (8 * L + 32 + U - 1) // U
+    # per (row, subsequence): entry and exit states (8 bytes each), block
+    # count and 4 DC sums (4 bytes each)
+    scratch = torch.empty(S * n_sub_max * 5, dtype=torch.int64, device=dev)
+    stats = torch.empty((S, len(STREAMED_STATS)), dtype=torch.int32,
+                        device=dev)
+    out = torch.empty((S, B, 64), dtype=torch.int32, device=dev)
     kernels.launch("vct_k6_huffman_decode_streamed", segbytes.data_ptr(), S,
                    L, seg_blocks.data_ptr(), comp_sched.data_ptr(), B, C,
                    lo.data_ptr(), hi.data_ptr(), offset.data_ptr(),
                    lo.shape[0], values.data_ptr(), values.shape[0],
-                   BLOCK_STEPS, out.data_ptr())
+                   lut.data_ptr(), U, n_sub_max, scratch.data_ptr(),
+                   stats.data_ptr(), out.data_ptr())
     decode_segments_streamed.launches += 1
+    decode_lut.launches += 1
+    decode_segments_streamed.stats = stats
     return out
 
 
 decode_segments_streamed.launches = 0
+# (S, len(STREAMED_STATS)) int32 on the card after each launch
+decode_segments_streamed.stats = None
 
 
 def decode_segments_lanes(segbytes: torch.Tensor, seg_blocks: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Build and load the port's nine CUDA kernels (K1-K9).
+"""Build and load the port's CUDA kernels (K1-K9 and the decode lookup
+table that K1 and K6 share).
 
 The sources in ``csrc/`` have a plain C interface. At first use they are
 compiled with ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per source, all
@@ -22,8 +23,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("huffman_decode.cu", "decode_datapath.cu", "encode_datapath.cu",
            "huffman_encode.cu", "huffman_decode_padded.cu",
            "huffman_decode_streamed.cu", "huffman_decode_staged.cu",
-           "pack_stuff.cu", "table_lookup.cu")
-HEADERS = ("huffman_decode_common.cuh",)
+           "pack_stuff.cu", "table_lookup.cu", "huffman_lut.cu")
+HEADERS = ("huffman_decode_common.cuh", "huffman_decode_lut.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -32,10 +33,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # flat, starts, lens, seg_blocks, S, comp_sched, B, C, lo, hi, offset,
-    # T, values, V, max_steps, init_bitpos, init_dc, out, stream
-    "vct_k1_huffman_decode": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P,
-                              _I, _P, _I, _I, _P, _P, _P, _P),
+    # flat, flat_len, starts, lens, seg_blocks, S, comp_sched, B, C, lo, hi,
+    # offset, T, values, V, lut, max_steps, init_bitpos, init_dc, out,
+    # stream
+    "vct_k1_huffman_decode": (_P, _L, _P, _P, _P, _I, _P, _I, _I, _P, _P,
+                              _P, _I, _P, _I, _P, _I, _P, _P, _P, _P),
+    # lo, hi, offset, T, values, V, lut, stream
+    "vct_huffman_lut": (_P, _P, _P, _I, _P, _I, _P, _P),
     # coefs, quant, N, P, out, stream
     "vct_k2_decode_datapath": (_P, _P, _I, _I, _P, _P),
     # pixels, quant, N, P, out, stream
@@ -48,9 +52,11 @@ _SIGNATURES = {
     # values, V, max_steps, out, stream
     "vct_k5_huffman_decode_padded": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
                                      _I, _P, _I, _I, _P, _P),
-    # as K5, with the per-block symbol cap in place of max_steps
+    # segbytes, S, L, seg_blocks, comp_sched, B, C, lo, hi, offset, T,
+    # values, V, lut, sub_bits, n_sub_max, scratch, stats, out, stream
     "vct_k6_huffman_decode_streamed": (_P, _I, _I, _P, _P, _I, _I, _P, _P,
-                                       _P, _I, _P, _I, _I, _P, _P),
+                                       _P, _I, _P, _I, _P, _I, _I, _P, _P,
+                                       _P, _P),
     # flat, flat_len, starts, lens, seg_blocks, S, comp_sched, B, C, lo, hi,
     # offset, T, values, V, max_steps, init_bitpos, init_dc, L, out, stream
     "vct_k7_huffman_decode_staged": (_P, _L, _P, _P, _P, _I, _P, _I, _I, _P,
