@@ -27,7 +27,15 @@ Phases (any failure ends the run with a nonzero exit):
   4. kernels   — K1-K4 and the LUT against their plain PyTorch versions on
                  the card at the transcode's shapes (exact equality), timed
                  with CUDA events beside their bounds; the LUT's share of
-                 entries that go to level 2 or to the range match;
+                 entries that go to level 2 or to the range match; K3 on
+                 adversarial blocks (k3_pixels: all-0, all-255, ±128
+                 checkerboards) at N = 1, 31, 33 and the dispatch's N + 1,
+                 quant periods 1, 6 and N, quant rows of 1, 255, random and
+                 past its reciprocal table, and refusing unaligned views;
+                 K4 on adversarial segments (k4_segments) at the main
+                 path's and path E's lane shapes and at 1, 31 and 33 lanes,
+                 C = 1, 3 and 4, m_out one below, at and one above the
+                 longest segment, refusing an unaligned int32 view;
   5. transcode — transcode_batch (q75, ri=1, F=16) with the launch counts
                  reset just before and read just after; bytes equal to the
                  same session on the CPU for 2 frames; every output parses;
@@ -88,7 +96,8 @@ FRAMES = 16
 WIDTH, HEIGHT = 1920, 1080
 SEED = 1234
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-INT32_OPS_PER_S = 67e12        # 32-bit non-tensor peak (the float32 figure)
+# 32-bit integer issue rate: 64 lanes an SM a clock x 132 SMs x 1.98 GHz
+INT32_OPS_PER_S = 16.7e12
 
 
 def log(msg: str) -> None:
@@ -207,6 +216,180 @@ def one_symbol_blocks(dec, n: int) -> np.ndarray:
     bits += "1" * (-len(bits) % 8)
     return np.frombuffer(int(bits, 2).to_bytes(len(bits) // 8, "big"),
                          np.uint8)
+
+
+def k3_pixels(n: int, rng) -> np.ndarray:
+    """(n, 8, 8) uint8 blocks for K3: all-0, all-255 and the two ±128
+    checkerboards (the largest |f|), then random pixels, in turn."""
+    px = rng.integers(0, 256, (n, 8, 8), dtype=np.uint8)
+    board = ((np.arange(8)[:, None] + np.arange(8)) % 2 * 255).astype(
+        np.uint8)
+    for i, blk in enumerate((0, 255, board, 255 - board)):
+        px[i::5] = blk
+    return px
+
+
+# K3's quant kinds: all 1 and all 255 (the extremes of 8-bit tables),
+# random 8-bit rows, and rows past the reciprocal table (its division path)
+K3_QUANTS = ("1", "255", "random", "wide")
+
+
+def k3_quant(kind: str, p: int, rng) -> np.ndarray:
+    """(p, 64) int32 quant rows of one of K3_QUANTS."""
+    if kind in ("1", "255"):
+        return np.full((p, 64), int(kind), np.int32)
+    q = rng.integers(1, 256 if kind == "random" else 70000, (p, 64))
+    if kind == "wide":
+        q[:, :4] = (1024, 1025, 4096, 65535)
+    return q.astype(np.int32)
+
+
+def k4_blocks(rng) -> np.ndarray:
+    """(n, 64) int32 zigzag blocks at K4's edges: all-zero (EOB only) and
+    all 63 AC nonzero (no EOB); 15, 16, 17, 31, 32 and 48 zeros before a
+    nonzero, in each half of the block and across the halves; long
+    trailing zero runs; AC values of ±1023, ±1024 and ±2047 (saturated
+    size 11) at runs 0, 14 and 15; blocks dense in 0xFF bytes. The DC
+    values cycle through ±2047 and 0, so same-component neighbours differ
+    by ±2047 and ±4094."""
+    blocks = [np.zeros(64, np.int32),
+              rng.integers(1, 60, 64) * rng.choice([-1, 1], 64)]
+
+    def put(at: dict):
+        b = np.zeros(64, np.int32)
+        b[list(at)] = list(at.values())
+        blocks.append(b)
+
+    for run in (15, 16, 17, 31, 32, 48):
+        put({1 + run: -3})
+        put({1: 1, 2 + run: 5})
+        put({40: 2, min(41 + run, 63): -7})
+        put({20: 1, min(21 + run, 63): 4})
+    put({1: 9})
+    put({63: -4})
+    put({5: 3, 20: 1})
+    for v in (1023, -1023, 1024, -1024, 2047, -2047):
+        for run in (0, 14, 15):
+            put({1 + run: v})
+            put({33: 1, 34 + run: v})
+            put({30: -1, 31 + run: v})
+    put({16: 1023, 32: 1023, 48: 1023, 63: 1023})
+    blocks.append(np.full(64, 1023, np.int32))
+    blocks.append(np.full(64, -1024, np.int32))
+    out = np.stack(blocks).astype(np.int32)
+    out[:, 0] = np.resize([2047, -2047, 2047, 0, -2047], len(out))
+    return out
+
+
+def k4_segments(S: int, B: int, C: int, rng, clamp: bool = True):
+    """(qc_seg (S, B·64) int32, valid (S, B) uint8, comp_sched (B,) int32)
+    built from k4_blocks: every block of the pool once, then random ones;
+    about one block in eight invalid, mid-segment too; a 4:2:0-like
+    schedule for C = 3, else round robin, with entries below 0 and past
+    C - 1 (which clamp) when ``clamp``."""
+    pool = k4_blocks(rng)
+    n = S * B
+    order = np.concatenate([np.arange(len(pool)),
+                            rng.integers(0, len(pool), n)])[:n]
+    qc = pool[order].reshape(S, B * 64)
+    valid = (rng.random((S, B)) > 0.125).astype(np.uint8)
+    valid[0] = 1
+    base = [0, 0, 0, 0, 1, 2] if C == 3 else list(range(C))
+    sched = np.resize(np.asarray(base, np.int32), B)
+    if clamp and B > 2:
+        sched[1], sched[-1] = -1, C
+    return qc, valid, sched
+
+
+def k4_tables(dctab: torch.Tensor, actab: torch.Tensor, C: int):
+    """Packed (dctab, actab) of C components from a 4:2:0 session's three
+    (luma, chroma, chroma, then luma again)."""
+    comps = [0, 1, 2, 0][:C]
+    return (dctab.view(3, 12)[comps].reshape(-1),
+            actab.view(3, 176)[comps].reshape(-1))
+
+
+def k4_bound_bytes(qc_seg, valid, comp_sched, dctab, actab, m_out) -> int:
+    """K4's compulsory bytes: the inputs once, the (S, m_out) slot array
+    (zero-filled with the segments' bytes) and the lengths once."""
+    return (sum(t.numel() * t.element_size()
+                for t in (qc_seg, valid, comp_sched, dctab, actab))
+            + qc_seg.shape[0] * (m_out + 4))
+
+
+def adversarial_encode_checks(n_k3: int, k4_args, n_blocks: int) -> None:
+    """Phase 4's edge cases for K3 and K4 against their plain versions
+    (any difference raises), at full size (K3's n_k3 + 1 blocks, K4's
+    main-path and path-E lanes) and at small ones."""
+    from video_coding_tpu_torch.entropy import huffman_encode as k4
+    from video_coding_tpu_torch.ops import datapath
+
+    dev = k4_args[0].device
+    rng = np.random.default_rng(SEED)
+    n_max = n_k3 + 1
+    pixels = torch.from_numpy(k3_pixels(n_max, rng)).to(dev)
+    runs = 0
+    for n in (1, 31, 33, n_max):
+        for p in sorted({1, 6, n}):
+            for kind in K3_QUANTS:
+                quant = torch.from_numpy(k3_quant(kind, p, rng)).to(dev)
+                got = datapath.encode_datapath(pixels[:n], quant)
+                if not torch.equal(got, datapath.encode_datapath_plain(
+                        pixels[:n], quant)):
+                    raise RuntimeError(f"K3 differs from its plain version "
+                                       f"at N={n}, P={p}, quant {kind}")
+                runs += 1
+    for shift in (1, 8):
+        try:
+            datapath.encode_datapath(pixels.view(-1)[shift:shift + 64 * 31]
+                                     .view(31, 8, 8), quant[:1])
+        except ValueError:
+            continue
+        raise RuntimeError(f"K3 took a view {shift} bytes off 16")
+    log(f"K3 adversarial blocks: exact in {runs} runs (N up to {n_max}), "
+        "unaligned views refused")
+    del pixels
+
+    qc_main, _v, _s, dctab, actab = k4_args
+    S_main, B_main = qc_main.shape[0], qc_main.shape[1] // 64
+    S_e = -(-n_blocks // 48) * FRAMES
+    tabs = {C: k4_tables(dctab, actab, C) for C in (1, 3, 4)}
+    for S, B, C in ((S_main, B_main, 3), (S_e, 48, 3), (1, 1, 1),
+                    (31, 6, 4), (33, 32, 3), (33, 48, 1)):
+        qc, valid, sched = (torch.from_numpy(a).to(dev) for a in k4_segments(
+            S, B, C, rng))
+        args = (qc, valid, sched, *tabs[C])
+        longest = int(k4.encode_segments_plain(*args, m_out=1)[1].max())
+        for m_out in (longest - 1, longest, longest + 1):
+            got = k4.encode_segments(*args, m_out=m_out)
+            ref = k4.encode_segments_plain(*args, m_out=m_out)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise RuntimeError(f"K4 differs from its plain version at "
+                                   f"S={S}, B={B}, C={C}, m_out={m_out}")
+        log(f"K4 adversarial segments S={S} B={B} C={C}: exact at m_out "
+            f"{longest - 1}, {longest} and {longest + 1} (longest segment "
+            f"{longest} bytes)")
+        del qc, valid, args, got, ref
+    qc, valid, sched = (torch.from_numpy(a).to(dev) for a in k4_segments(
+        31, 6, 3, rng))
+    buf = torch.zeros(qc.numel() + 4, dtype=torch.int32, device=dev)
+    buf[1:1 + qc.numel()] = qc.view(-1)
+    try:
+        k4.encode_segments(buf[1:1 + qc.numel()].view(qc.shape), valid,
+                           sched, *tabs[3], m_out=2000)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("K4 took a view 4 bytes off 16")
+    buf[4:] = qc.view(-1)
+    args = (buf[4:].view(qc.shape), valid, sched, *tabs[3])
+    if not all(torch.equal(a, b) for a, b in zip(
+            k4.encode_segments(*args, m_out=2000),
+            k4.encode_segments_plain(*args, m_out=2000))):
+        raise RuntimeError("K4 differs from its plain version on a view 16 "
+                           "bytes on")
+    log("K4: a view 4 bytes off a 16-byte boundary refused, one 16 bytes "
+        "on exact")
 
 
 def decode_redesign_checks(k1, captured, dec) -> None:
@@ -472,10 +655,8 @@ def main() -> int:
     if bool(ovf):
         raise RuntimeError("K4 overflowed at the locked budget")
     n_sym4 = symbol_count(qc)
-    S4 = qc_seg.shape[0]
-    k4_bytes = (qc_seg.numel() * 4 + valid.numel()
-                + (enc.state.dctab.numel() + enc.state.actab.numel()) * 4
-                + int(lens4.sum()) + S4 * 4)
+    k4_bytes = k4_bound_bytes(*k4_args, m_out)
+    adversarial_encode_checks(N3, k4_args, enc.n_blocks)
     rows.append(("K4", "video_coding_tpu_torch/csrc/huffman_encode.cu",
                  "video_coding_tpu/entropy/pallas_encode.py:502",
                  lambda: k4.encode_segments(*k4_args, m_out=m_out),
@@ -897,11 +1078,14 @@ def main() -> int:
     ms_split = time_ms(lambda: k8.encode_segments_split(
         *sym_args, blocks_per_segment=B_e, max_seg_bytes=kw8["m_raw"]), 5)
     ms_k4 = time_ms(lambda: k4.encode_segments(*k4_e, m_out=kw8["m_out"]),
-                    10)
+                    20)
+    bms4, by4 = bound_ms(k4_bound_bytes(*k4_e, kw8["m_out"]),
+                         30.0 * symbol_count(qc_e))
     log(f"path E's entropy encode as torch ops ({S_e} lanes): symbol "
         f"construction (with K9) {ms_sym:.3f} ms; split route (symbols + pad "
         f"slot + K8) {ms_split:.3f} ms; gather packer (symbols + gathers) "
-        f"{ms_gather:.3f} ms; K4 on the same coefficients {ms_k4:.3f} ms")
+        f"{ms_gather:.3f} ms; K4 on the same coefficients {ms_k4:.4f} ms, "
+        f"bound {bms4:.4f} ms ({by4}) — {bms4 / ms_k4:.1%} of bound")
 
     # 13. kernels line, 14. last line
     print(json.dumps({"kernels": [

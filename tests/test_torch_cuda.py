@@ -428,3 +428,100 @@ def test_flat_kernel_on_unaligned_view(gpu, shift, hooks):
     args = (*up, sched, *tabs)
     assert torch.equal(huffman_decode.decode_flat(*args, **kw),
                        huffman_decode.decode_flat_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("p", ["1", "6", "N"])
+@pytest.mark.parametrize("n", [1, 31, 33, 783361])
+def test_encode_datapath_kernel_on_adversarial_blocks(gpu, n, p):
+    """K3 at block counts off its tile (783,361 is one past the main
+    path's dispatch), quant periods of 1, 6 and N, on all-0, all-255 and
+    ±128 checkerboard blocks, with quant rows of 1, 255, random 8-bit and
+    past the reciprocal table."""
+    from chip_smoke import K3_QUANTS, k3_pixels, k3_quant
+    rng = np.random.default_rng(n)
+    pixels = torch.from_numpy(k3_pixels(n, rng)).to(gpu)
+    for kind in K3_QUANTS:
+        quant = torch.from_numpy(
+            k3_quant(kind, n if p == "N" else int(p), rng)).to(gpu)
+        before = datapath.encode_datapath.launches
+        got = datapath.encode_datapath(pixels, quant)
+        assert datapath.encode_datapath.launches == before + 1
+        assert torch.equal(got, datapath.encode_datapath_plain(pixels, quant))
+
+
+def test_encode_datapath_rejects_unaligned_views(gpu):
+    """K3 reads 16-byte vectors: a pixel or quant view off a 16-byte
+    boundary is refused, an aligned view (a block offset) is encoded."""
+    n = 100
+    rng = np.random.default_rng(3)
+    flat = torch.from_numpy(rng.integers(0, 256, n * 64 + 64,
+                                         dtype=np.uint8)).to(gpu)
+    quant = torch.from_numpy(rng.integers(1, 256, (7, 64)).astype(
+        np.int32)).to(gpu)
+    for shift in (1, 4, 8, 15):
+        with pytest.raises(ValueError):
+            datapath.encode_datapath(
+                flat[shift:shift + n * 64].view(n, 8, 8), quant[:6])
+    with pytest.raises(ValueError):
+        datapath.encode_datapath(flat[:n * 64].view(n, 8, 8),
+                                 quant.view(-1)[1:6 * 64 + 1].view(6, 64))
+    view = flat[64:].view(n, 8, 8)
+    assert torch.equal(datapath.encode_datapath(view, quant[1:]),
+                       datapath.encode_datapath_plain(view, quant[1:]))
+
+
+def _k4_tables(gpu, C):
+    from chip_smoke import k4_tables
+    st = JpegEncoderSession(Parameters.c420(64, 48, 75), 1,
+                            device="cpu").state
+    return tuple(t.to(gpu) for t in k4_tables(st.dctab, st.actab, C))
+
+
+@pytest.mark.parametrize("S,B,C", [(1, 1, 1), (31, 6, 3), (33, 6, 4),
+                                   (33, 32, 3), (31, 48, 4), (33, 48, 1),
+                                   (4000, 6, 3)])
+def test_huffman_encode_kernel_on_adversarial_blocks(gpu, S, B, C):
+    """K4 on the entropy coder's edge cases (``chip_smoke.k4_blocks``:
+    EOB-only and EOB-free blocks, runs around 16, 32 and 48, long trailing
+    zeros, saturated sizes at runs 0, 14 and 15, DC steps of ±2047 and
+    ±4094, 0xFF-dense streams), invalid blocks mid-segment and clamped
+    schedule entries, with m_out one below, at and one above the longest
+    segment's stuffed length."""
+    from chip_smoke import k4_segments
+    qc, valid, sched = (torch.from_numpy(a).to(gpu) for a in k4_segments(
+        S, B, C, np.random.default_rng(S * B * C)))
+    args = (qc, valid, sched, *_k4_tables(gpu, C))
+    longest = int(huffman_encode.encode_segments_plain(*args, m_out=1)[1]
+                  .max())
+    for m_out in (longest - 1, longest, longest + 1):
+        before = huffman_encode.encode_segments.launches
+        got = huffman_encode.encode_segments(*args, m_out=m_out)
+        assert huffman_encode.encode_segments.launches == before + 1
+        ref = huffman_encode.encode_segments_plain(*args, m_out=m_out)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert bool(got[2]) == (m_out < longest)
+
+
+def test_huffman_encode_rejects_unaligned_views(gpu):
+    """K4 copies its coefficients in 16-byte pieces: an int32 view 4, 8 or
+    12 bytes off a 16-byte boundary is refused, one 16 bytes on is
+    encoded as the plain version does."""
+    from chip_smoke import k4_segments
+    S, B = 40, 6
+    qc, valid, sched = (torch.from_numpy(a).to(gpu) for a in k4_segments(
+        S, B, 3, np.random.default_rng(9)))
+    tabs = _k4_tables(gpu, 3)
+    flat = torch.zeros(qc.numel() + 4, dtype=torch.int32, device=gpu)
+    for shift in (1, 2, 3, 4):
+        view = flat[shift:shift + qc.numel()].view(S, B * 64)
+        view.copy_(qc)
+        args = (view, valid, sched, *tabs)
+        if shift < 4:
+            with pytest.raises(ValueError):
+                huffman_encode.encode_segments(*args, m_out=900)
+            continue
+        for a, b in zip(huffman_encode.encode_segments(*args, m_out=900),
+                        huffman_encode.encode_segments_plain(*args,
+                                                             m_out=900)):
+            assert torch.equal(a, b)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import K3_QUANTS, k3_pixels, k3_quant
 from video_coding_tpu.model.zigzag import INVERSE
 from video_coding_tpu.ops import chen_jax
 from video_coding_tpu.ops import datapath as jdp
@@ -74,6 +75,104 @@ def test_mul181_shift8_exact_over_int32():
     ref = np.asarray(chen_jax._mul181_shift8(jnp.asarray(a)))
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(got, (181 * a.astype(np.int64) + 128) >> 8)
+
+
+def _k3_constant(name: str) -> int:
+    text = (CSRC / "encode_datapath.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_reciprocal_quotient_exact():
+    """K3's quotient, in exactly the kernel's operations: m = (2^32 - 1) //
+    4q + 1 in uint32, then the high word of n * m, equals n // 4q for every
+    dividend n < 2^17 and every q in 1..kRecipQuant."""
+    n = np.arange(1 << 17, dtype=np.uint64)
+    for q in range(1, _k3_constant("kRecipQuant") + 1):
+        d = 4 * q
+        m = np.uint64(np.uint32(0xFFFFFFFF // d + 1))
+        assert np.array_equal((n * m) >> np.uint64(32), n // np.uint64(d)), q
+
+
+class _Interval:
+    """Integer range [lo, hi] through the fDCT pass's operations."""
+
+    def __init__(self, lo: int, hi: int):
+        self.lo, self.hi = lo, hi
+
+    def __add__(self, o):
+        return _Interval(self.lo + o.lo, self.hi + o.hi)
+
+    def __sub__(self, o):
+        return _Interval(self.lo - o.hi, self.hi - o.lo)
+
+    def __rmul__(self, k: int):
+        assert k >= 0
+        return _Interval(k * self.lo, k * self.hi)
+
+    def __rshift__(self, s: int):
+        return _Interval(self.lo >> s, self.hi >> s)
+
+
+def test_fdct_range_fits_the_quotient_proof():
+    """Interval arithmetic through both Chen passes: |f| < 2^13 for every
+    8-bit block, so K3's dividend |f| + 2q stays below 2^17 for every q
+    with a reciprocal."""
+    x = _Interval(-128, 127)
+    cols = [chen._fdct_pass([x] * 8) for _ in range(8)]
+    out = [chen._fdct_pass([cols[c][u] for c in range(8)]) for u in range(8)]
+    bound = max(max(-v.lo, v.hi) for row in out for v in row)
+    assert bound < 1 << 13
+    assert bound + 2 * _k3_constant("kRecipQuant") < 1 << 17
+
+
+def _fdct8(v, bias: int):
+    """K3's pass on a list of 8 int64 arrays; ``bias`` joins the DC sum."""
+    a0, c3 = v[0] + v[7], v[0] - v[7]
+    a1, c2 = v[1] + v[6], v[1] - v[6]
+    a2, c1 = v[2] + v[5], v[2] - v[5]
+    a3, c0 = v[3] + v[4], v[3] - v[4]
+    b0, b1, b2, b3 = a0 + a3, a1 + a2, a1 - a2, a0 - a3
+    o0 = (362 * (b0 + b1 + bias)) >> 9
+    o4 = (362 * (b0 - b1)) >> 9
+    o2 = (196 * b2 + 473 * b3) >> 9
+    o6 = (196 * b3 - 473 * b2) >> 9
+    b0, b1 = (362 * (c2 - c1)) >> 9, (362 * (c2 + c1)) >> 9
+    a0, a1, a2, a3 = c0 + b0, c0 - b0, c3 - b1, c3 + b1
+    return [o0, (100 * a0 + 502 * a3) >> 9, o2, (426 * a2 - 284 * a1) >> 9,
+            o4, (426 * a1 + 284 * a2) >> 9, o6, (100 * a3 - 502 * a0) >> 9]
+
+
+def _k3_model(pixels: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """K3's arithmetic in numpy: unshifted pixels, the -128 level shift
+    as -1024 on the first pass's DC sums, the reciprocal quotient for q in
+    1..kRecipQuant and the division past it."""
+    n = len(pixels)
+    px = pixels.reshape(n, 64).astype(np.int64)
+    rows = [[px[:, r * 8 + c] for c in range(8)] for r in range(8)]
+    cols = [_fdct8([rows[r][c] for r in range(8)], -1024) for c in range(8)]
+    f = np.stack([v for r in range(8)
+                  for v in _fdct8([cols[c][r] for c in range(8)], 0)], 1)
+    fzz = f[:, np.asarray(INVERSE)]
+    q = np.tile(quant, (-(-n // len(quant)), 1))[:n].astype(np.int64)
+    a = np.abs(fzz) + 2 * q
+    recip = 0xFFFFFFFF // np.maximum(4 * q, 1) + 1
+    t = np.where(q <= _k3_constant("kRecipQuant"), (a * recip) >> 32,
+                 a // (4 * q))
+    return np.where(fzz < 0, -t, t)
+
+
+@pytest.mark.parametrize("kind", K3_QUANTS)
+@pytest.mark.parametrize("n,p", [(33, 1), (31, 6), (200, 200)])
+def test_k3_arithmetic_matches_plain(n, p, kind):
+    """The kernel's rearranged arithmetic equals the plain version on the
+    adversarial blocks (all-0, all-255, ±128 checkerboards) and on quant
+    rows of 1, 255, random 8-bit and past the reciprocal table."""
+    rng = np.random.default_rng(n * p)
+    pixels = k3_pixels(n, rng)
+    quant = k3_quant(kind, p, rng)
+    ref = datapath.encode_datapath_plain(torch.from_numpy(pixels),
+                                         torch.from_numpy(quant)).numpy()
+    np.testing.assert_array_equal(_k3_model(pixels, quant), ref)
 
 
 def test_chen_transforms_match_reference():

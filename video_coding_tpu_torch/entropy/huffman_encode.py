@@ -1,5 +1,5 @@
-"""K4: the whole baseline entropy encoder, one restart segment per lane,
-with its plain PyTorch version beside it.
+"""K4: the whole baseline entropy encoder (16 lanes a restart segment on
+the card), with its plain PyTorch version beside it.
 
 Contract (the reference's ``encode_segments_fused``): (S, B·64) int32
 quantized zigzag coefficients and an (S, B) valid mask →
@@ -182,7 +182,8 @@ def encode_segments(qc_seg: torch.Tensor, valid_seg: torch.Tensor,
     """K4: qc_seg (S, B·64) int32, valid_seg (S, B) uint8, comp_sched (B,)
     int32, dctab (C·12,) / actab (C·176,) int32 packed tables →
     (out (S, m_out) uint8, lens (S,) int32, overflow 0-dim bool tensor on
-    the input's device)."""
+    the input's device). On the card qc_seg must start on a 16-byte
+    boundary (a fresh tensor does; a view may not)."""
     S = qc_seg.shape[0]
     B = comp_sched.shape[0]
     C = dctab.shape[0] // 12
@@ -205,6 +206,9 @@ def encode_segments(qc_seg: torch.Tensor, valid_seg: torch.Tensor,
                                      actab, m_out=m_out)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if qc_seg.data_ptr() % 16:
+        raise ValueError("qc_seg: K4 copies 16-byte pieces; the data must "
+                         "start on a 16-byte boundary")
     out = torch.zeros((S, m_out), dtype=torch.uint8, device=dev)
     lens = torch.empty(S, dtype=torch.int32, device=dev)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)

@@ -102,7 +102,8 @@ def encode_datapath_plain(pixels: torch.Tensor,
 
 def encode_datapath(pixels: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
     """K3: (N, 8, 8) uint8 pixels × (P, 64) int32 zigzag quant → (N, 64)
-    int32 zigzag quantized coefficients."""
+    int32 zigzag quantized coefficients. On the card both inputs must start
+    on a 16-byte boundary (a fresh tensor does; a view may not)."""
     n = pixels.shape[0]
     if quant.dim() != 2 or quant.shape[1] != 64 or quant.shape[0] < 1:
         raise ValueError(f"quant: expected (P, 64), got {tuple(quant.shape)}")
@@ -112,6 +113,10 @@ def encode_datapath(pixels: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
         return encode_datapath_plain(pixels, quant)
     if pixels.device.type != "cuda":
         raise ValueError(f"unsupported device {pixels.device}")
+    for name, t in (("pixels", pixels), ("quant", quant)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: K3 reads 16-byte vectors; the data "
+                             "must start on a 16-byte boundary")
     out = torch.empty((n, 64), dtype=torch.int32, device=pixels.device)
     kernels.launch("vct_k3_encode_datapath", pixels.data_ptr(),
                    quant.data_ptr(), n, quant.shape[0], out.data_ptr())
