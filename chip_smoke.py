@@ -27,7 +27,12 @@ Phases (any failure ends the run with a nonzero exit):
   4. kernels   — K1-K4 and the LUT against their plain PyTorch versions on
                  the card at the transcode's shapes (exact equality), timed
                  with CUDA events beside their bounds; the LUT's share of
-                 entries that go to level 2 or to the range match; K3 on
+                 entries that go to level 2 or to the range match; K2 on
+                 adversarial blocks (k2_coefs: zero, DC only, ±2047,
+                 ±32767, wrapping 2^20 products, random int32; k2_quant
+                 rows with 4096 and 65535) at N = 1, 31, 33, 127, 129 and
+                 the dispatch's N + 1, quant periods 1, 6, 720 and N, and
+                 refusing views off a 16-byte boundary; K3 on
                  adversarial blocks (k3_pixels: all-0, all-255, ±128
                  checkerboards) at N = 1, 31, 33 and the dispatch's N + 1,
                  quant periods 1, 6 and N, quant rows of 1, 255, random and
@@ -53,8 +58,10 @@ Phases (any failure ends the run with a nonzero exit):
                  adversarial inputs (random bytes, all-zero and all-0xFF
                  rows, one symbol a block, a schedule with no short
                  period, short rows, seg_blocks 0 and B, malformed range
-                 tables); K1 and K6 timed at other CTA sizes and K6 at
-                 other subsequence lengths;
+                 tables); K7 against its plain version and K1 on random
+                 lanes of up to 1,500 bytes (many halves of its ring), an
+                 all-0xFF lane, one symbol a block, with and without hooks,
+                 real and malformed tables; K6 at two subsequence lengths;
   8. rates     — frames a second of decode_device_batch_iter on A and B
                  (median of 3 windows), one path B dispatch under the
                  profiler, and the host index scan's time;
@@ -229,6 +236,40 @@ def k3_pixels(n: int, rng) -> np.ndarray:
     return px
 
 
+def k2_coefs(n: int, rng) -> np.ndarray:
+    """(n, 64) int32 zigzag blocks for K2, in turn: all-zero; DC only
+    (+2047, -2047); ±2047 everywhere; ±32767 everywhere (int16 extremes:
+    the product with any quant above 1 saturates the 12-bit clamp); 2^20
+    everywhere and ±(2^20 + 1) alternating (products with 4096 wrap in
+    int32, to 0 and to ±4096); random int32 (arbitrary wraps); then
+    random blocks of ±1024 with a decaying high band."""
+    c = rng.integers(-1024, 1025, (n, 64)).astype(np.int32)
+    c[:, 20:] //= 8
+    alt = np.where(np.arange(64) % 2, -1, 1).astype(np.int64)
+    dc_only = np.zeros(64, np.int32)
+    dc_only[0] = 2047
+    kinds = [np.zeros(64, np.int32), dc_only, -dc_only,
+             np.full(64, 2047, np.int32), np.full(64, -2047, np.int32),
+             np.full(64, 32767, np.int32), np.full(64, -32767, np.int32),
+             np.full(64, 1 << 20, np.int32),
+             (alt * ((1 << 20) + 1)).astype(np.int32)]
+    for i, blk in enumerate(kinds):
+        c[i::len(kinds) + 2] = blk
+    wild = slice(len(kinds), None, len(kinds) + 2)
+    c[wild] = rng.integers(-2**31, 2**31, c[wild].shape, dtype=np.int64)
+    return c
+
+
+def k2_quant(p: int, rng) -> np.ndarray:
+    """(p, 64) int32 quant rows for K2: random 8-bit values with every
+    row holding 4096 (whose products with 2^20 wrap) and 65535 (the
+    16-bit DQT maximum) at fixed positions."""
+    q = rng.integers(1, 256, (p, 64)).astype(np.int32)
+    q[:, 3::7] = 4096
+    q[:, 5::11] = 65535
+    return q
+
+
 # K3's quant kinds: all 1 and all 255 (the extremes of 8-bit tables),
 # random 8-bit rows, and rows past the reciprocal table (its division path)
 K3_QUANTS = ("1", "255", "random", "wide")
@@ -392,10 +433,52 @@ def adversarial_encode_checks(n_k3: int, k4_args, n_blocks: int) -> None:
         "on exact")
 
 
+def adversarial_decode_datapath_checks(n_k2: int, dev) -> None:
+    """Phase 4's edge cases for K2 against its plain version (any
+    difference raises): k2_coefs blocks at N = 1, 31, 33, 127, 129 and the
+    dispatch's N + 1, quant periods 1, 6, 720 and N; views off a 16-byte
+    boundary refused, one a block on exact."""
+    from video_coding_tpu_torch.ops import datapath
+
+    rng = np.random.default_rng(SEED + 2)
+    n_max = n_k2 + 1
+    coefs = torch.from_numpy(k2_coefs(n_max, rng)).to(dev)
+    runs = 0
+    for n in (1, 31, 33, 127, 129, n_max):
+        for p in sorted({1, 6, 720, n}):
+            quant = torch.from_numpy(k2_quant(p, rng)).to(dev)
+            got = datapath.decode_datapath(coefs[:n], quant)
+            if not torch.equal(got, datapath.decode_datapath_plain(
+                    coefs[:n], quant)):
+                raise RuntimeError(f"K2 differs from its plain version at "
+                                   f"N={n}, P={p}")
+            runs += 1
+    quant = torch.from_numpy(k2_quant(7, rng)).to(dev)
+    flat_c, flat_q = coefs[:32].view(-1), quant.view(-1)
+    for name, args in (
+            ("coefs", (flat_c[1:1 + 31 * 64].view(31, 64), quant[:6])),
+            ("coefs", (flat_c[2:2 + 31 * 64].view(31, 64), quant[:6])),
+            ("quant", (coefs[:31], flat_q[1:1 + 6 * 64].view(6, 64)))):
+        try:
+            datapath.decode_datapath(*args)
+        except ValueError:
+            continue
+        raise RuntimeError(f"K2 took a {name} view off a 16-byte boundary")
+    view = (coefs[1:32], quant[1:])
+    if not torch.equal(datapath.decode_datapath(*view),
+                       datapath.decode_datapath_plain(*view)):
+        raise RuntimeError("K2 differs from its plain version on a view a "
+                           "block on")
+    log(f"K2 adversarial blocks: exact in {runs} runs (N up to {n_max}, "
+        "P = 1, 6, 720 and N), views off a 16-byte boundary refused")
+    del coefs
+
+
 def decode_redesign_checks(k1, captured, dec) -> None:
-    """Phase 7's look into the redesigned K6 and K1: K6's sync statistics
-    on path B, and both (with the lookup table) against their plain
-    versions on adversarial inputs. Any difference raises."""
+    """Phase 7's look into the redesigned K6, K1 and K7: K6's sync
+    statistics on path B, and all three (with the lookup table) against
+    their plain versions on adversarial inputs, K7 also against K1. Any
+    difference raises."""
     dev = dec.device
     a6, k6 = captured["K6"]
     k1.decode_segments_streamed(*a6, **k6)
@@ -481,6 +564,44 @@ def decode_redesign_checks(k1, captured, dec) -> None:
                      k1.decode_flat_plain(*view, sched, *tabs, **kw))
     log("K1 (with and without hooks) and the LUT: exact on random lanes, "
         "unaligned views and malformed tables")
+    # K7 against its plain version and K1: random lanes of up to 1,500
+    # bytes (one past the buffer's end), so each crosses many halves of its
+    # ring, an all-0xFF lane and one of one symbol a block
+    S, B = 600, 24
+    flat = rng.integers(0, 256, 7504).astype(np.uint8)
+    lens = rng.integers(0, 1500, S).astype(np.int32)
+    starts = rng.integers(0, 6000, S).astype(np.int32)
+    ones = one_symbol_blocks(dec, B)
+    flat[100:100 + len(ones)] = ones
+    starts[1], lens[1] = 100, len(ones)
+    flat[2000:2600] = 0xFF
+    starts[2], lens[2] = 2000, 600
+    lens[0] = flat.size - starts[0] + 40
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    segb[:3] = B
+    up = [torch.from_numpy(x).to(dev) for x in (flat, starts, lens, segb)]
+    hooks = dict(
+        init_bitpos=torch.from_numpy(
+            rng.integers(0, 64, S).astype(np.int32)).to(dev),
+        init_dc=torch.from_numpy(
+            rng.integers(-40000, 40000, (S, 3)).astype(np.int32)).to(dev))
+    for tab_name, tabs in (("real", real), ("malformed", bad)):
+        for hook_kw in ({}, hooks):
+            kw = dict(blocks_per_segment=B, n_components=3, **hook_kw)
+            k7 = k1.decode_flat_staged(*up, sched, *tabs, **kw)
+            tag = f"K7 {tab_name} hooks={bool(hook_kw)}"
+            same(tag, k7, k1.decode_flat_staged_plain(*up, sched, *tabs,
+                                                      **kw))
+            same(tag + " against K1", k7,
+                 k1.decode_flat(*up, sched, *tabs, **kw))
+    lut_bad = k1.decode_lut(*bad)[:bad[0].shape[0] << k1.LUT_BITS]
+    level1 = lut_bad.to(torch.int32) & 0xFFFF
+    log(f"K7 (with and without hooks): exact against its plain version and "
+        f"K1 on {S} random lanes of up to 1,500 bytes, an all-0xFF lane and "
+        f"one of one symbol a block, with real and malformed tables (these "
+        f"send {int(((level1 & 0xC000) == k1.LUT_POOLED).sum())} level-1 "
+        f"entries to a level-2 block, "
+        f"{int((level1 == k1.LUT_FALLBACK).sum())} to the range match)")
 
 
 def main() -> int:
@@ -551,7 +672,11 @@ def main() -> int:
             f"{max(map(len, ss))} bytes, {time.perf_counter() - t0:.1f} s")
     for tag, (hdr_s, pl_s) in sources.items():
         got = JpegDecoderSession(hdr_s).decode_device(pl_s[0])
-        for name, g, ref in zip("yuv", got, frames[0]):
+        if not isinstance(got, Frame):
+            raise RuntimeError(f"source {tag}: decode_device gave "
+                               f"{type(got).__name__}, not a Frame")
+        for name, ref in zip("yuv", frames[0]):
+            g = getattr(got, name).data
             db = psnr(g, ref)
             log(f"sources {tag}: {name} PSNR {db:.2f} dB")
             if g.shape != ref.shape or db <= 30.0:
@@ -628,6 +753,7 @@ def main() -> int:
                  lambda: datapath.decode_datapath(pool, qseg),
                  lambda: datapath.decode_datapath_plain(pool, qseg),
                  N2 * 64 * 4 + qseg.numel() * 4 + N2 * 64, 1200.0 * N2))
+    adversarial_decode_datapath_checks(N2, dev)
 
     stacks = dec._decode_tail_pool(pool, torch.from_numpy(inv_perm).to(
         dev).to(torch.int64), FRAMES)
@@ -812,7 +938,7 @@ def main() -> int:
             else:
                 call = lambda: sess.decode_device_batch(pay_p)  # noqa: E731
             got, seen = counted(call, (kname, "K2") + (
-                ("LUT",) if kname in ("K1+hooks", "K6") else ()))
+                ("LUT",) if kname in ("K1+hooks", "K6", "K7") else ()))
             wall = time.perf_counter() - t0
         finally:
             setattr(k1, wname, wrapper)
@@ -859,9 +985,8 @@ def main() -> int:
         out = fn(*a, **k)
         err[kname] = compare(kname, out, plain(*a, **k))
         if kname == "K7":
-            k_k1 = {x: v for x, v in k.items() if x != "L"}
-            compare("K7 against K1", out, k1.decode_flat(*a, **k_k1))
-            ms_k1 = time_ms(lambda: k1.decode_flat(*a, **k_k1), 20)
+            compare("K7 against K1", out, k1.decode_flat(*a, **k))
+            ms_k1 = time_ms(lambda: k1.decode_flat(*a, **k), 20)
             log(f"K1 on K7's arguments: {ms_k1:.4f} ms")
         n_sym = symbol_count(out.view(-1, 64))
         nbytes = (sum(t.numel() * t.element_size() for t in a[:-5])
@@ -975,7 +1100,8 @@ def main() -> int:
     worst = 99.0
     for o, src in zip(outs_e, frames):
         parses(o)
-        for g, r in zip(dec_e.decode_device(o[hdr_len_e:]), src):
+        got = dec_e.decode_device(o[hdr_len_e:])
+        for g, r in zip((got.y.data, got.u.data, got.v.data), src):
             if g.shape != r.shape:
                 raise RuntimeError("path E: decoded plane shape differs")
             worst = min(worst, psnr(g, r))

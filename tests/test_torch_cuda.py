@@ -184,8 +184,8 @@ def test_padded_kernels_on_corrupt_rows(gpu, kind, L):
 
 @pytest.mark.parametrize("staged", [False, True])
 def test_flat_kernels_on_corrupt_lanes(gpu, staged):
-    """Random bytes, start bits and predictors; lanes of up to 700 bytes
-    against a staging bucket of 64, so K7 loads in several waves."""
+    """Random bytes, start bits and predictors; lanes of up to 700 bytes,
+    so K7 streams each through many halves of its ring."""
     dec, tabs = _tables(gpu)
     rng = np.random.default_rng(5)
     S, B = 500, 24
@@ -205,10 +205,119 @@ def test_flat_kernels_on_corrupt_lanes(gpu, staged):
     k1 = huffman_decode.decode_flat(*args, **kw)
     assert torch.equal(k1, huffman_decode.decode_flat_plain(*args, **kw))
     if staged:
-        k7 = huffman_decode.decode_flat_staged(*args, L=64, **kw)
+        k7 = huffman_decode.decode_flat_staged(*args, **kw)
         assert torch.equal(k7, k1)
         assert torch.equal(k7, huffman_decode.decode_flat_staged_plain(
-            *args, L=64, **kw))
+            *args, **kw))
+
+
+@pytest.mark.parametrize("malformed", [False, True])
+@pytest.mark.parametrize("hooks", [False, True])
+def test_staged_kernel_matches_plain_and_k1(gpu, hooks, malformed):
+    """K7 on random lanes of up to 1,500 bytes (one past the buffer's
+    end), all-0xFF lanes and lanes of one symbol a block, with the
+    session's tables and with malformed ones (level-2 blocks and the range
+    match), against its plain version and against K1; each call builds
+    the lookup table once."""
+    dec, tabs = _tables(gpu)
+    if malformed:
+        tabs = _malformed_tables(gpu, seed=3)
+    rng = np.random.default_rng(11 + hooks)
+    S, B = 600, 24
+    lens = rng.integers(0, 1500, S).astype(np.int32)
+    starts = rng.integers(0, 6000, S).astype(np.int32)
+    flat = rng.integers(0, 256, 7504).astype(np.uint8)
+    ones = _one_symbol_blocks(dec, B)
+    flat[100:100 + len(ones)] = ones
+    starts[1], lens[1] = 100, len(ones)
+    flat[2000:2600] = 0xFF
+    starts[2], lens[2] = 2000, 600
+    lens[0] = 7504 - starts[0] + 40          # past the buffer's end
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    segb[:3] = B
+    sched = torch.from_numpy(
+        np.resize(dec.comp_idx[:6], B).astype(np.int32)).to(gpu)
+    up = [torch.from_numpy(a).to(gpu) for a in (flat, starts, lens, segb)]
+    kw = dict(blocks_per_segment=B, n_components=3)
+    if hooks:
+        kw["init_bitpos"] = torch.from_numpy(
+            rng.integers(0, 64, S).astype(np.int32)).to(gpu)
+        kw["init_dc"] = torch.from_numpy(
+            rng.integers(-40000, 40000, (S, 3)).astype(np.int32)).to(gpu)
+    args = (*up, sched, *tabs)
+    before = (huffman_decode.decode_flat_staged.launches,
+              huffman_decode.decode_lut.launches)
+    k7 = huffman_decode.decode_flat_staged(*args, **kw)
+    assert (huffman_decode.decode_flat_staged.launches,
+            huffman_decode.decode_lut.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert torch.equal(k7, huffman_decode.decode_flat_staged_plain(
+        *args, **kw))
+    assert torch.equal(k7, huffman_decode.decode_flat(*args, **kw))
+
+
+def test_staged_kernel_writes_every_block(gpu):
+    """K7's output comes from torch.empty: with the allocator's next block
+    poisoned (0x7F bytes, freed just before), blocks past each lane's
+    decoded ones still read zero."""
+    dec, tabs = _tables(gpu)
+    rng = np.random.default_rng(13)
+    S, B = 300, 24
+    lens = rng.integers(0, 200, S).astype(np.int32)
+    starts = rng.integers(0, 3000, S).astype(np.int32)
+    flat = rng.integers(0, 256, 3200).astype(np.uint8)
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    sched = torch.from_numpy(
+        np.resize(dec.comp_idx[:6], B).astype(np.int32)).to(gpu)
+    args = (*[torch.from_numpy(a).to(gpu) for a in (flat, starts, lens,
+                                                     segb)], sched, *tabs)
+    kw = dict(blocks_per_segment=B, n_components=3)
+    poison = torch.full((S * B * 64 * 4,), 0x7F, dtype=torch.uint8,
+                        device=gpu)
+    torch.cuda.synchronize()
+    del poison
+    got = huffman_decode.decode_flat_staged(*args, **kw)
+    ref = huffman_decode.decode_flat_staged_plain(*args, **kw)
+    assert torch.equal(got, ref)
+    past = torch.arange(B, device=gpu)[None] >= args[3][:, None]
+    assert past.any() and not got[past].any()
+
+
+@pytest.mark.parametrize("p", ["1", "6", "720", "N"])
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 783361])
+def test_decode_datapath_kernel_on_adversarial_blocks(gpu, n, p):
+    """K2 at block counts off its tile (783,361 is one past the main
+    path's dispatch), quant periods of 1, 6, 720 and N (staged in shared
+    memory and read from global memory), on chip_smoke.k2_coefs: zero,
+    DC-only, ±2047, ±32767, wrapping 2^20 products and random int32."""
+    from chip_smoke import k2_coefs, k2_quant
+    rng = np.random.default_rng(n)
+    coefs = torch.from_numpy(k2_coefs(n, rng)).to(gpu)
+    quant = torch.from_numpy(
+        k2_quant(n if p == "N" else int(p), rng)).to(gpu)
+    before = datapath.decode_datapath.launches
+    got = datapath.decode_datapath(coefs, quant)
+    assert datapath.decode_datapath.launches == before + 1
+    assert torch.equal(got, datapath.decode_datapath_plain(coefs, quant))
+
+
+def test_decode_datapath_rejects_unaligned_views(gpu):
+    """K2 reads 16-byte vectors: a coefficient or quant view off a 16-byte
+    boundary is refused, an aligned view (a block on) is decoded."""
+    from chip_smoke import k2_coefs, k2_quant
+    rng = np.random.default_rng(4)
+    coefs = torch.from_numpy(k2_coefs(101, rng)).to(gpu)
+    quant = torch.from_numpy(k2_quant(7, rng)).to(gpu)
+    flat = coefs.view(-1)
+    for shift in (1, 2, 3):
+        with pytest.raises(ValueError):
+            datapath.decode_datapath(
+                flat[shift:shift + 100 * 64].view(100, 64), quant[:6])
+    with pytest.raises(ValueError):
+        datapath.decode_datapath(coefs[:100],
+                                 quant.view(-1)[1:6 * 64 + 1].view(6, 64))
+    assert torch.equal(datapath.decode_datapath(coefs[1:], quant[1:]),
+                       datapath.decode_datapath_plain(coefs[1:], quant[1:]))
 
 
 @pytest.mark.parametrize("T,n,offset", [(1, 5, 0), (128, 1000, 1),

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K3_QUANTS, k3_pixels, k3_quant
+from chip_smoke import K3_QUANTS, k2_coefs, k2_quant, k3_pixels, k3_quant
 from video_coding_tpu.model.zigzag import INVERSE
 from video_coding_tpu.ops import chen_jax
 from video_coding_tpu.ops import datapath as jdp
@@ -65,6 +65,95 @@ def test_decode_worst_case_coefficients(sign):
     got = datapath.decode_datapath(torch.from_numpy(coefs),
                                    torch.from_numpy(quant))
     np.testing.assert_array_equal(got.numpy().astype(np.int32), ref)
+
+
+@pytest.mark.parametrize("p", ["1", "6", "N"])
+@pytest.mark.parametrize("n", [1, 31, 33, 129])
+def test_decode_datapath_adversarial_matches_pallas(n, p):
+    """K2's plain version on chip_smoke.k2_coefs (zero, DC-only, ±2047,
+    ±32767, wrapping 2^20 products, random int32) and k2_quant rows (8-bit,
+    4096, 65535) against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(n * 7 + len(p))
+    coefs = k2_coefs(n, rng)
+    quant = k2_quant(n if p == "N" else int(p), rng)
+    qfull = np.tile(quant, (-(-n // len(quant)), 1))[:n]
+    ref = np.asarray(jdp.decode_datapath_pallas(
+        jnp.asarray(coefs), jnp.asarray(qfull), interpret=True))
+    got = datapath.decode_datapath(torch.from_numpy(coefs),
+                                   torch.from_numpy(quant))
+    np.testing.assert_array_equal(got.numpy().astype(np.int32), ref)
+
+
+def _idct8(x, row: bool, level: int):
+    """One pass of K2's Chen IDCT on a list of 8 values (int64 arrays or
+    _Interval): the kernel's operations, with ``level`` added to the
+    column pass's DC term (the folded +128)."""
+    mul = (lambda a: _Interval((181 * a.lo + 128) >> 8,
+                               (181 * a.hi + 128) >> 8)) \
+        if isinstance(x[0], _Interval) else (lambda a: (181 * a + 128) >> 8)
+    if row:
+        x0, x1 = 2048 * x[0] + _const(x, 128), 2048 * x[4]
+    else:
+        x0, x1 = 256 * x[0] + _const(x, 8192 + level), 256 * x[4]
+    x2, x3, x4, x5, x6, x7 = x[6], x[2], x[1], x[7], x[5], x[3]
+    r, s = (0, 0) if row else (4, 3)
+    x8 = W7 * (x4 + x5) + _const(x, r)
+    x4, x5 = (x8 + (W1 - W7) * x4) >> s, (x8 - (W1 + W7) * x5) >> s
+    x8 = W3 * (x6 + x7) + _const(x, r)
+    x6, x7 = (x8 - (W3 - W5) * x6) >> s, (x8 - (W3 + W5) * x7) >> s
+    x8, x0 = x0 + x1, x0 - x1
+    x1 = W6 * (x3 + x2) + _const(x, r)
+    x2, x3 = (x1 - (W2 + W6) * x2) >> s, (x1 + (W2 - W6) * x3) >> s
+    x1, x4, x6, x5 = x4 + x6, x4 - x6, x5 + x7, x5 - x7
+    x7, x8, x3, x0 = x8 + x3, x8 - x3, x0 + x2, x0 - x2
+    x2, x4 = mul(x4 + x5), mul(x4 - x5)
+    return [x7 + x1, x3 + x2, x0 + x4, x8 + x6, x8 - x6, x0 - x4, x3 - x2,
+            x7 - x1]
+
+
+def _const(x, c: int):
+    return _Interval(c, c) if isinstance(x[0], _Interval) else c
+
+
+W1, W2, W3, W5, W6, W7 = 2841, 2676, 2408, 1609, 1108, 565
+
+
+def test_idct_column_sums_leave_room_for_the_level_shift():
+    """Interval arithmetic through K2's two passes for every 12-bit input:
+    the column pass's sums, with the folded +128 << 14, stay below 2^30,
+    so adding the level shift before the >> 14 wraps nothing and equals
+    adding 128 after it."""
+    x = _Interval(-2048, 2047)
+    rows = [v >> 8 for v in _idct8([x] * 8, True, 0)]
+    sums = _idct8(rows, False, 128 << 14)
+    assert max(max(-v.lo, v.hi) for v in sums) < 1 << 30
+
+
+def _k2_model(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """K2's arithmetic in numpy: the wrapping int32 product and 12-bit
+    clamp, the compile-time dezigzag, both passes with the level shift
+    folded into the column pass, the clip to [0, 255]."""
+    n = len(coefs)
+    q = np.tile(quant, (-(-n // len(quant)), 1))[:n]
+    deq = (coefs.astype(np.int64) * q).astype(np.uint64).astype(np.uint32)
+    deq = np.clip(deq.astype(np.int32), -2048, 2047).astype(np.int64)
+    v = np.zeros((n, 64), np.int64)
+    v[:, np.asarray(INVERSE)] = deq
+    rows = [[r >> 8 for r in _idct8([v[:, r * 8 + c] for c in range(8)],
+                                    True, 0)] for r in range(8)]
+    cols = [[s >> 14 for s in _idct8([rows[r][c] for r in range(8)], False,
+                                     128 << 14)] for c in range(8)]
+    px = np.stack([cols[c][r] for r in range(8) for c in range(8)], 1)
+    return np.clip(px, 0, 255).reshape(n, 8, 8)
+
+
+@pytest.mark.parametrize("n,p", [(33, 1), (31, 6), (129, 129)])
+def test_k2_arithmetic_matches_plain(n, p):
+    rng = np.random.default_rng(n + p)
+    coefs, quant = k2_coefs(n, rng), k2_quant(p, rng)
+    ref = datapath.decode_datapath_plain(torch.from_numpy(coefs),
+                                         torch.from_numpy(quant)).numpy()
+    np.testing.assert_array_equal(_k2_model(coefs, quant), ref)
 
 
 def test_mul181_shift8_exact_over_int32():

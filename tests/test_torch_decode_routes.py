@@ -12,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from video_coding_tpu.common.frame import Frame as RefFrame
 from video_coding_tpu.entropy import tpu_decode
 from video_coding_tpu.model import decoder as mdec
 from video_coding_tpu.runtime import engine
 from video_coding_tpu_torch import state as tstate
 from video_coding_tpu_torch.common.bitstream import BitReader
+from video_coding_tpu_torch.common.frame import Frame
+from video_coding_tpu_torch.common.plane import Plane
 from video_coding_tpu_torch.entropy import huffman_decode
 from video_coding_tpu_torch.model.header import Header
 from video_coding_tpu_torch.runtime import engine as tengine
@@ -43,7 +46,18 @@ def _golden(stream):
     return [g.y.data, g.u.data, g.v.data]
 
 
+def _planes(frame):
+    """The arrays of a decoded picture: a ``Frame``'s y, u, v, or those of
+    a list of ``Plane``s; a tuple of plane tensors passes as it is."""
+    if isinstance(frame, (Frame, RefFrame)):
+        return [frame.y.data, frame.u.data, frame.v.data]
+    if isinstance(frame, list):
+        return [p.data for p in frame]
+    return frame
+
+
 def _assert_planes(got, ref):
+    got, ref = _planes(got), _planes(ref)
     assert len(got) == len(ref)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
@@ -81,7 +95,9 @@ def test_decode_device_matches_reference_session_and_golden(sub, w, h, q,
          "plane_geom": jdec.plane_geom,
          "range_tables": tpu_decode.range_tables(jdec.tables)}, "cpu"))
     got = dec.decode_device(payload)
-    _assert_planes(got, [ref.y.data, ref.u.data, ref.v.data])
+    assert isinstance(ref, RefFrame) and isinstance(got, Frame)
+    assert got.chroma_subsampling.name == ref.chroma_subsampling.name
+    _assert_planes(got, ref)
     _assert_planes(got, _golden(stream))
     assert dec.entropy_segments_per_frame == jdec.entropy_segments_per_frame
     assert dec.device_entropy_parallel == jdec.device_entropy_parallel
@@ -110,6 +126,35 @@ def test_decode_device_batch_matches_reference_session(sub, w, h, ri):
     flat_y = torch.cat([c[0] for c in chunks])
     for k, i in enumerate((2, 0, 1, 1, 2)):
         assert torch.equal(flat_y[k], got[i][0])
+
+
+@pytest.mark.parametrize("n_comp", [1, 2])
+def test_to_frame_gives_planes_below_three_components(monkeypatch, n_comp):
+    """Fewer than three components come back as a list of ``Plane``s, as
+    the reference session gives them (its ``_to_frame`` on the same
+    MCU-padded planes), cropped to each component's size."""
+    stream = _stream("420", 40, 24, 75, 1, seed=4)
+    jheader, payload = header_payload(stream)
+    jdec = engine.JpegDecoderSession(jheader)
+    dec, _ = _port(stream)
+    padded = dec.decode_device_e2e(payload)
+    for sess in (jdec, dec):
+        monkeypatch.setattr(sess, "components", sess.components[:n_comp])
+    got = dec._to_frame(padded)
+    ref = jdec._to_frame([p.numpy() for p in padded])
+    assert isinstance(got, list) and isinstance(ref, list)
+    assert all(isinstance(p, Plane) for p in got)
+    assert len(got) == n_comp
+    _assert_planes(got, ref)
+    _assert_planes(got, _golden(stream)[:n_comp])
+    assert got[0].data.shape == (24, 40)
+
+
+def test_runtime_exports_encode_jpeg():
+    from video_coding_tpu_torch import runtime
+
+    assert runtime.encode_jpeg is tengine.encode_jpeg
+    assert "encode_jpeg" in runtime.__all__
 
 
 STRATEGY_CALLS = {

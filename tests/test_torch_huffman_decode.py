@@ -7,6 +7,9 @@ streams from the reference model encoder and on corrupt inputs
 the reads past a lane's end and the saturation. Tolerance: exact
 equality."""
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -125,10 +128,9 @@ def _flat_both(jfn, pfn, dec, B, flat_p, starts, lens, segb, bp0, dc0, L):
         j(flat_p), j(starts), j(lens), j(segb), j(sched), *map(j, tabs),
         L=L, blocks_per_segment=B, n_components=C, init_bitpos=j(bp0),
         init_dc=j(dc0), interpret=True))
-    pkw = {"L": L} if pfn is huffman_decode.decode_flat_staged else {}
     got = pfn(t(flat_p), t(starts), t(lens), t(segb), t(sched),
               *map(t, tabs), blocks_per_segment=B, n_components=C,
-              init_bitpos=t(bp0), init_dc=t(dc0), **pkw).numpy()
+              init_bitpos=t(bp0), init_dc=t(dc0)).numpy()
     return got, ref
 
 
@@ -200,6 +202,157 @@ def test_decode_flat_staged_corrupt_matches_pallas_dma():
                           dec.blocks_per_segment, bad, starts, cut, segb,
                           None, None, L)
     np.testing.assert_array_equal(got, ref)
+
+
+# --- K7's staged word source, modelled --------------------------------------
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / \
+    "video_coding_tpu_torch" / "csrc"
+MASK64 = (1 << 64) - 1
+
+
+def _k7_half_rows_log() -> int:
+    text = (CSRC / "huffman_decode_staged.cu").read_text()
+    return int(re.search(r"constexpr int kHalfRowsLog = (\d+);",
+                         text).group(1))
+
+
+class _StagedWordsModel:
+    """K7's ``StagedWords``, step by step: a ring of two halves of
+    2^kHalfRowsLog rows; a copy lands only when a wait retires its group;
+    a read must find its own row landed in its slot (a stale slot or one
+    still in flight fails the test). Rows outside the buffer are filled
+    with its nearest byte at once."""
+
+    def __init__(self, flat: np.ndarray, row0: int, len_eff: int):
+        self.flat, self.row0, self.len_eff = flat, row0, len_eff
+        self.log = _k7_half_rows_log()
+        self.ring = 2 << self.log
+        self.slots = {}          # slot -> [row, bytes, landed]
+        self.groups = []         # pending groups of slots, oldest first
+        self.issued = self.waited = -(1 << 30)
+        self.halves = 0
+
+    def _issue(self, h: int) -> None:
+        group, n_rows = [], len(self.flat) // 16
+        for i in range(1 << self.log):
+            r = (h << self.log) + i
+            if r * 16 >= self.len_eff:
+                break
+            row = self.row0 + r
+            if 0 <= row < n_rows:
+                data, landed = self.flat[row * 16:row * 16 + 16], False
+                group.append(r % self.ring)
+            else:
+                b = self.flat[0 if row < 0 else n_rows * 16 - 1]
+                data, landed = np.full(16, b, np.uint8), True
+            self.slots[r % self.ring] = [r, data, landed]
+        self.groups.append(group)
+        self.halves += 1
+
+    def _wait(self, n: int) -> None:
+        while len(self.groups) > n:
+            for slot in self.groups.pop(0):
+                self.slots[slot][2] = True
+
+    def word(self, j: int) -> int:
+        q = 4 * j
+        keep = self.len_eff - q
+        if keep <= 0:
+            return 0
+        h = (q >> 4) >> self.log
+        if h >= self.issued or h < self.issued - 2:
+            self._wait(0)
+            self._issue(h)
+            self._issue(h + 1)
+            self.issued = h + 2
+            self._wait(1)
+            self.waited = h + 1
+        elif h >= self.waited:
+            self._wait(0)
+            self.waited = self.issued
+            self._issue(self.issued)
+            self.issued += 1
+        row, data, landed = self.slots[(q >> 4) % self.ring]
+        assert row == q >> 4 and landed, (row, q >> 4, landed)
+        x = int.from_bytes(bytes(data[q & 15:(q & 15) + 4]), "big")
+        return x if keep >= 4 else x & ~(0xFFFFFFFF >> (8 * keep))
+
+
+class _BitWindowModel:
+    """``BitWindow``: words k and k+1 in a 64-bit buffer, word k+2 asked
+    for one step ahead."""
+
+    def __init__(self, src: _StagedWordsModel):
+        self.src, self.buf, self.nxt, self.k = src, 0, 0, None
+
+    def peek16(self, p: int) -> int:
+        kk = p >> 5
+        if kk != self.k:
+            if self.k is not None and kk == self.k + 1:
+                self.buf = ((self.buf << 32) | self.nxt) & MASK64
+            else:
+                self.buf = (self.src.word(kk) << 32) | self.src.word(kk + 1)
+            self.nxt = self.src.word(kk + 2)
+            self.k = kk
+        return ((self.buf << (p & 31)) & MASK64) >> 48
+
+
+@pytest.mark.parametrize("hooks", [False, True])
+def test_staged_word_source_model_matches_plain(hooks):
+    """K7's ring and bit window, modelled, feed the symbol loop and give
+    decode_flat_staged_plain's coefficients on lanes of 513 bytes and more
+    (a whole restart-free frame, random bytes, one past the buffer's end),
+    crossing many halves of the ring."""
+    stream = encode("420", synth_frame("420", 128, 64, 9), 90, 0)
+    header, payload = header_payload(stream)
+    dec = engine.JpegDecoderSession(header)
+    scan, _ = jscan.destuff_flat(payload)
+    assert len(scan) > 1024
+    rng = np.random.default_rng(9)
+    flat = rng.integers(0, 256, len(scan) + 4096).astype(np.uint8)
+    flat = np.concatenate([flat, np.zeros(-len(flat) % 16, np.uint8)])
+    flat[5:5 + len(scan)] = scan
+    S, B = 8, dec.n_blocks
+    starts = np.concatenate([[5, 5], rng.integers(len(scan) + 8,
+                             len(flat) - 1300, S - 3),
+                             [len(flat) - 300]]).astype(np.int32)
+    lens = np.concatenate([[len(scan), 700], rng.integers(513, 1200, S - 3),
+                           [900]]).astype(np.int32)
+    segb = np.full(S, B, np.int32)
+    segb[2:] = 40
+    sched = _t(dec.comp_idx[:B].astype(np.int32))
+    tabs = [_t(a) for a in tpu_decode.range_tables(dec.tables)]
+    bp0 = dc0 = None
+    if hooks:
+        bp0 = _t(rng.integers(0, 64, S).astype(np.int32))
+        dc0 = _t(rng.integers(-40000, 40000, (S, 3)).astype(np.int32))
+    args = (_t(flat), _t(starts), _t(lens), _t(segb), sched, *tabs)
+    kw = dict(blocks_per_segment=B, n_components=3, init_bitpos=bp0,
+              init_dc=dc0)
+    ref = huffman_decode.decode_flat_staged_plain(*args, **kw)
+    row_starts, lens_eff, bitpos = huffman_decode._staged_view(
+        args[1], args[2], bp0)
+    windows = [_BitWindowModel(_StagedWordsModel(flat, int(r) >> 4, int(n)))
+               for r, n in zip(row_starts, lens_eff)]
+
+    def peek16(pos):
+        return torch.tensor([w.peek16(int(p)) for w, p in zip(windows, pos)],
+                            dtype=torch.int64)
+
+    got = huffman_decode._symbol_loop_plain(
+        peek16, args[3], sched, *tabs, blocks_per_segment=B, n_components=3,
+        saturate=True, total_cap=huffman_decode.max_steps(B), block_cap=None,
+        init_bitpos=bitpos, init_dc=dc0)
+    assert torch.equal(got, ref)
+    half_bytes = 16 << _k7_half_rows_log()
+    assert windows[0].src.halves >= len(scan) // half_bytes
+    assert min(w.src.halves for w in windows) > 2
+    if not hooks:    # lane 0 is the whole frame, decoded
+        golden = jscan.decode_scan([scan.tobytes()], dec.comp_idx,
+                                   dec.n_blocks, dec.tables,
+                                   use_native=False)
+        np.testing.assert_array_equal(got[0].numpy(), golden)
 
 
 # --- K5 and K6 on padded lane matrices --------------------------------------

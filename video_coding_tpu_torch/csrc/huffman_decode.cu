@@ -105,48 +105,10 @@ __global__ void __launch_bounds__(kThreads) huffman_decode_kernel(
   LaneReader rd{{FlatWords{flat, flat_len, mis, start >> 2,
                            start - mis + lens[lane]}},
                 8 * (int)(start & 3)};
-  int dc[kMaxComponents] = {0, 0, 0, 0};
-  if (init_dc != nullptr)
-    for (int c = 0; c < C; ++c) dc[c] = init_dc[(size_t)lane * C + c];
-  int32_t* dst = out + (size_t)lane * B * 64;
-
-  const int nblk = min(seg_blocks[lane], B);
-  int bitpos = init_bitpos ? init_bitpos[lane] : 0;
-  int blk = 0, cof = 0, steps = 0, comp = 0, dcw = 0;
-  bool in_ac = false;
-  while (blk < nblk && steps < max_steps) {
-    ++steps;
-    // schedule entries past the tables clamp to the last component (the
-    // sessions never produce them)
-    if (!in_ac) comp = sched_comp(s_comp, comp_sched, blk, C);
-    int used, run, cat, val;
-    decode_symbol(rd, tb, lut, comp + (in_ac ? C : 0), in_ac, bitpos, used,
-                  run, cat, val);
-    bitpos += used;
-    if (!in_ac) {
-      dcw = min(max(add_dc(dc, comp, val), -32768), 32767);
-      in_ac = true;
-      cof = 1;
-    } else if (run == 0 && cat == 0) {  // EOB
-      bb.flush(dst + (size_t)blk * 64, dcw);
-      ++blk;
-      in_ac = false;
-    } else {
-      const int nc = cof + run;
-      if (nc < 64 && val) bb.put(nc, min(max(val, -32768), 32767));
-      if (nc + 1 >= 64) {
-        bb.flush(dst + (size_t)blk * 64, dcw);
-        ++blk;
-        in_ac = false;
-      } else {
-        cof = nc + 1;
-      }
-    }
-  }
-  // a lane stopped by its cap inside a block still hands that block over
-  if (in_ac) bb.flush(dst + (size_t)blk++ * 64, dcw);
-  for (blk = max(blk, 0); blk < B; ++blk)
-    store_zero_block(dst + (size_t)blk * 64);
+  decode_lane_lut(rd, tb, lut, s_comp, comp_sched, min(seg_blocks[lane], B),
+                  B, C, max_steps, init_bitpos ? init_bitpos[lane] : 0,
+                  init_dc ? init_dc + (size_t)lane * C : nullptr, bb,
+                  out + (size_t)lane * B * 64);
 }
 
 }  // namespace

@@ -1,18 +1,15 @@
 // Shared device code of the Huffman decode kernels (K1, K5, K6, K7): the
 // canonical-range tables in shared memory, the code match and the
-// magnitude sign extension; and the two per-lane symbol loops of K5 and K7
-// (K1 and K6 decode through huffman_decode_lut.cuh instead) —
+// magnitude sign extension; and K5's per-lane symbol loop (K1, K6 and K7
+// decode through huffman_decode_lut.cuh instead) —
 //
-//   decode_lane_stream   reads a byte stream through a 64-bit bit buffer
-//                        (K7 from its staged copy); values saturated to
-//                        int16, one step cap a lane;
 //   decode_lane_windows  reads 16-bit peeks through the clamped window index
 //                        of a padded lane matrix (K5, byte-granular); values
 //                        not saturated; a step cap a lane (its cap a block
 //                        served K6 before K6 left this loop).
 //
-// Both are the same automaton: DC code + magnitude, then AC (run, size)
-// codes + magnitudes until EOB or position 63, DC prediction per component.
+// The automaton: DC code + magnitude, then AC (run, size) codes +
+// magnitudes until EOB or position 63, DC prediction per component.
 
 #pragma once
 
@@ -82,75 +79,6 @@ __device__ inline void match(const Tables& tb, int t, int w16, int& code_len,
 // JPEG magnitude sign extension of a cat-bit code, cat in 1..16.
 __device__ inline int extend(int cat, int code) {
   return (code & (1 << (cat - 1))) ? code : code - (1 << cat) + 1;
-}
-
-// ---------------------------------------------------------------------------
-// Byte-stream form (K1, K7). ``fetch(p)`` is byte p of the lane's stream,
-// zero at and past its length. The lane starts at bit ``bitpos0`` with the
-// DC predictors ``dc0`` (null: zeros).
-template <class Fetch>
-__device__ inline void decode_lane_stream(Fetch& fetch, const Tables& tb,
-                                          const int32_t* comp_sched,
-                                          int nblk, int C, int max_steps,
-                                          int bitpos0, const int32_t* dc0,
-                                          int32_t* dst) {
-  // MSB-aligned bit buffer: the next `nb` stream bits are buf's top bits
-  uint64_t buf = 0;
-  int nb = 0;
-  int p = bitpos0 >> 3;  // next byte to load
-  if (bitpos0 & 7) {
-    buf = (fetch(p++) << 56) << (bitpos0 & 7);
-    nb = 8 - (bitpos0 & 7);
-  }
-  int dc[kMaxComponents] = {0, 0, 0, 0};
-  if (dc0 != nullptr)
-    for (int c = 0; c < C; ++c) dc[c] = dc0[c];
-  int blk = 0, cof = 0, steps = 0;
-  bool in_ac = false;
-
-  while (blk < nblk && steps < max_steps) {
-    ++steps;
-    while (nb <= 56) {
-      buf |= fetch(p++) << (56 - nb);
-      nb += 8;
-    }
-    const int w16 = (int)(buf >> 48);
-    // schedule entries past the tables clamp to the last component (the
-    // sessions never produce them)
-    const int comp = min(max(__ldg(comp_sched + blk), 0), C - 1);
-    int code_len, data;
-    match(tb, comp + (in_ac ? C : 0), w16, code_len, data);
-    const int run = in_ac ? (data >> 4) & 0xF : 0;
-    // baseline size categories are <= 11; 16 bounds the 32-bit window
-    const int cat = min(in_ac ? (data & 0xF) : data, 16);
-    int val = 0;
-    if (cat > 0) val = extend(cat, (int)((buf << code_len) >> (64 - cat)));
-    const int used = code_len + cat;
-    buf = used ? (buf << used) : buf;
-    nb -= used;
-
-    if (!in_ac) {
-      dc[comp] += val;
-      const int sat = min(max(dc[comp], -32768), 32767);
-      if (sat) dst[blk * 64] = sat;
-      in_ac = true;
-      cof = 1;
-    } else if (run == 0 && cat == 0) {  // EOB
-      ++blk;
-      in_ac = false;
-      cof = 0;
-    } else {
-      const int nc = cof + run;
-      if (nc < 64 && val) dst[blk * 64 + nc] = min(max(val, -32768), 32767);
-      if (nc + 1 >= 64) {
-        ++blk;
-        in_ac = false;
-        cof = 0;
-      } else {
-        cof = nc + 1;
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-// Shared device code of the redesigned Huffman decode kernels K1 and K6:
-// the direct-lookup table beside the range tables, a bit window fed by
-// aligned 32-bit word loads, the one-symbol decode step, and a per-thread
-// int16 block buffer that leaves as whole 16-byte stores.
+// Shared device code of the redesigned Huffman decode kernels K1, K6 and
+// K7: the direct-lookup table beside the range tables, a bit window fed by
+// aligned 32-bit word loads, the one-symbol decode step, a per-thread
+// int16 block buffer that leaves as whole 16-byte stores, and the lane
+// loop of K1 and K7 (decode_lane_lut), which differ only in their word
+// source.
 //
 // The lookup table (built by huffman_lut.cu, plain version
 // huffman_decode.decode_lut_plain) has two levels. Level 1 has 2^kLutBits
@@ -38,7 +40,7 @@ struct Lut {
 };
 
 // Builds the table into lut (lut_entries(T) int16) on `stream`
-// (huffman_lut.cu); K1 and K6 call it ahead of their decode.
+// (huffman_lut.cu); K1, K6 and K7 call it ahead of their decode.
 extern "C" int vct_huffman_lut(const int32_t* lo, const int32_t* hi,
                                const int32_t* offset, int T,
                                const int32_t* values, int V, int16_t* lut,
@@ -183,6 +185,60 @@ __device__ inline int add_dc(int (&dc)[kMaxComponents], int comp, int v) {
     }
   }
   return r;
+}
+
+// One lane of K1 or K7: blocks of the schedule from bit `bitpos` of the
+// reader's stream with the DC predictors dc0[0..C) (null: zeros), until
+// nblk blocks or
+// max_steps symbols — values saturated to int16, a block cut by the cap
+// handed over as it stands — and then zero blocks up to B, so every block
+// of dst (B x 64 int32) is written. `rd.peek16(p)` gives the 16 stream
+// bits at bit p; the positions asked for never decrease.
+template <class Reader>
+__device__ inline void decode_lane_lut(Reader& rd, const Tables& tb,
+                                       const Lut& lut, const uint8_t* s_comp,
+                                       const int32_t* comp_sched, int nblk,
+                                       int B, int C, int max_steps,
+                                       int bitpos, const int32_t* dc0,
+                                       BlockBuf& bb, int32_t* dst) {
+  int dc[kMaxComponents] = {0, 0, 0, 0};
+  if (dc0 != nullptr)
+    for (int c = 0; c < C; ++c) dc[c] = dc0[c];
+  int blk = 0, cof = 0, steps = 0, comp = 0, dcw = 0;
+  bool in_ac = false;
+  while (blk < nblk && steps < max_steps) {
+    ++steps;
+    // schedule entries past the tables clamp to the last component (the
+    // sessions never produce them)
+    if (!in_ac) comp = sched_comp(s_comp, comp_sched, blk, C);
+    int used, run, cat, val;
+    decode_symbol(rd, tb, lut, comp + (in_ac ? C : 0), in_ac, bitpos, used,
+                  run, cat, val);
+    bitpos += used;
+    if (!in_ac) {
+      dcw = min(max(add_dc(dc, comp, val), -32768), 32767);
+      in_ac = true;
+      cof = 1;
+    } else if (run == 0 && cat == 0) {  // EOB
+      bb.flush(dst + (size_t)blk * 64, dcw);
+      ++blk;
+      in_ac = false;
+    } else {
+      const int nc = cof + run;
+      if (nc < 64 && val) bb.put(nc, min(max(val, -32768), 32767));
+      if (nc + 1 >= 64) {
+        bb.flush(dst + (size_t)blk * 64, dcw);
+        ++blk;
+        in_ac = false;
+      } else {
+        cof = nc + 1;
+      }
+    }
+  }
+  // a lane stopped by its cap inside a block still hands that block over
+  if (in_ac) bb.flush(dst + (size_t)blk++ * 64, dcw);
+  for (blk = max(blk, 0); blk < B; ++blk)
+    store_zero_block(dst + (size_t)blk * 64);
 }
 
 }  // namespace vct

@@ -19,7 +19,8 @@ saturated, and where the symbol cap sits:
     stream; the block count ends such a lane, not its length).
 ``decode_flat_staged`` (K7, ``decode_flat_pallas_dma``)
     K1's arguments and K1's result, bit for bit; the kernel copies each
-    lane's 16-byte rows into shared memory itself.
+    lane's 16-byte rows into shared memory itself and runs K1's loop on
+    them.
 ``decode_segments`` (K5, ``decode_segments_pallas``)
     lane s is row s of a padded (S, L) matrix; peeks read the reference's
     byte-granular 32-bit windows with a clamped index; values not
@@ -30,7 +31,7 @@ saturated, and where the symbol cap sits:
     the cap is 134 symbols a block (it never binds: a block ends within
     64 symbols).
 
-K1 and K6 look symbols up in ``decode_lut``, a two-level table built
+K1, K6 and K7 look symbols up in ``decode_lut``, a two-level table built
 from the range tables on every call (2^``LUT_BITS`` entries per table row,
 then ``LUT_POOL`` blocks for the prefixes of longer codes), and run the
 range match only where the blocks run out.
@@ -239,11 +240,10 @@ def decode_flat_plain(flat, starts, lens, seg_blocks, comp_sched, lo, hi,
 
 
 def decode_flat_staged_plain(flat, starts, lens, seg_blocks, comp_sched, lo,
-                             hi, offset, values, *, L: int,
-                             blocks_per_segment: int, n_components: int,
-                             init_bitpos=None, init_dc=None) -> torch.Tensor:
-    """Plain PyTorch K7: K1's loop on the row-aligned view of each lane
-    (``L`` only sizes the kernel's staging buffer)."""
+                             hi, offset, values, *, blocks_per_segment: int,
+                             n_components: int, init_bitpos=None,
+                             init_dc=None) -> torch.Tensor:
+    """Plain PyTorch K7: K1's loop on the row-aligned view of each lane."""
     row_starts, lens_eff, bitpos = _staged_view(starts, lens, init_bitpos)
     return decode_flat_plain(
         flat, row_starts, lens_eff, seg_blocks, comp_sched, lo, hi, offset,
@@ -357,7 +357,7 @@ def _lut_buffer(T: int, dev) -> torch.Tensor:
 
 def decode_lut(lo: torch.Tensor, hi: torch.Tensor, offset: torch.Tensor,
                values: torch.Tensor) -> torch.Tensor:
-    """The lookup table of K1 and K6 from the range tables: lo/hi/offset
+    """The lookup table of K1, K6 and K7 from the range tables: lo/hi/offset
     int32 (T, 16), values int32 (V,) → int16 (T·2^LUT_BITS +
     LUT_POOL·2^(16 - LUT_BITS),), as ``decode_lut_plain``."""
     T = lo.shape[0]
@@ -425,14 +425,14 @@ def decode_flat_staged(flat: torch.Tensor, starts: torch.Tensor,
                        lens: torch.Tensor, seg_blocks: torch.Tensor,
                        comp_sched: torch.Tensor, lo: torch.Tensor,
                        hi: torch.Tensor, offset: torch.Tensor,
-                       values: torch.Tensor, *, L: int,
-                       blocks_per_segment: int, n_components: int,
+                       values: torch.Tensor, *, blocks_per_segment: int,
+                       n_components: int,
                        init_bitpos: torch.Tensor | None = None,
                        init_dc: torch.Tensor | None = None) -> torch.Tensor:
     """K7: K1's arguments and result. ``flat`` must be zero-padded to a
-    multiple of 16 bytes; ``L`` is the batch's lane-length bucket (at
-    least the longest lane) and only sizes the kernel's staging buffer —
-    longer lanes load in further waves."""
+    multiple of 16 bytes. The kernel streams every lane through a fixed
+    ring of rows, whatever its length, so it takes no lane-length bucket
+    (the reference's ``L``)."""
     S = starts.shape[0]
     B = blocks_per_segment
     C = n_components
@@ -444,19 +444,23 @@ def decode_flat_staged(flat: torch.Tensor, starts: torch.Tensor,
     if dev.type == "cpu":
         return decode_flat_staged_plain(
             flat, starts, lens, seg_blocks, comp_sched, lo, hi, offset,
-            values, L=L, blocks_per_segment=B, n_components=C,
+            values, blocks_per_segment=B, n_components=C,
             init_bitpos=init_bitpos, init_dc=init_dc)
     if flat.data_ptr() % 16:
         raise ValueError("flat: storage must be 16-byte aligned")
-    out = torch.zeros((S, B, 64), dtype=torch.int32, device=dev)
+    # the kernel's entry point builds the lookup table here first
+    lut = _lut_buffer(lo.shape[0], dev)
+    # every block is written by the kernel (past a lane's end as zeros)
+    out = torch.empty((S, B, 64), dtype=torch.int32, device=dev)
     kernels.launch("vct_k7_huffman_decode_staged", flat.data_ptr(),
                    flat.shape[0], starts.data_ptr(), lens.data_ptr(),
                    seg_blocks.data_ptr(), S, comp_sched.data_ptr(), B, C,
                    lo.data_ptr(), hi.data_ptr(), offset.data_ptr(),
                    lo.shape[0], values.data_ptr(), values.shape[0],
-                   max_steps(B), _ptr(init_bitpos), _ptr(init_dc), int(L),
-                   out.data_ptr())
+                   lut.data_ptr(), max_steps(B), _ptr(init_bitpos),
+                   _ptr(init_dc), out.data_ptr())
     decode_flat_staged.launches += 1
+    decode_lut.launches += 1
     return out
 
 

@@ -1,5 +1,5 @@
 """Build and load the port's CUDA kernels (K1-K9 and the decode lookup
-table that K1 and K6 share).
+table that K1, K6 and K7 share).
 
 The sources in ``csrc/`` have a plain C interface. At first use they are
 compiled with ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per source, all
@@ -58,9 +58,9 @@ _SIGNATURES = {
                                        _P, _I, _P, _I, _P, _I, _I, _P, _P,
                                        _P, _P),
     # flat, flat_len, starts, lens, seg_blocks, S, comp_sched, B, C, lo, hi,
-    # offset, T, values, V, max_steps, init_bitpos, init_dc, L, out, stream
+    # offset, T, values, V, lut, max_steps, init_bitpos, init_dc, out, stream
     "vct_k7_huffman_decode_staged": (_P, _L, _P, _P, _P, _I, _P, _I, _I, _P,
-                                     _P, _P, _I, _P, _I, _I, _P, _P, _I, _P,
+                                     _P, _P, _I, _P, _I, _P, _I, _P, _P, _P,
                                      _P),
     # c_hi, c_lo, c_len, raw_bytes_len, S, K, m_raw, m_out, out, out_lens,
     # overflow, stream

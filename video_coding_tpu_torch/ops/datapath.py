@@ -46,6 +46,14 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_aligned(kernel: str, *named) -> None:
+    """The kernels copy their inputs in 16-byte pieces."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {kernel} reads 16-byte vectors; the "
+                             "data must start on a 16-byte boundary")
+
+
 def _quant_rows(quant: torch.Tensor, n: int) -> torch.Tensor:
     """(P, 64) period table → (n, 64) with row i = quant[i % P]."""
     p = quant.shape[0]
@@ -66,7 +74,8 @@ def decode_datapath_plain(coefs: torch.Tensor,
 
 def decode_datapath(coefs: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
     """K2: (N, 64) int32 zigzag coefs × (P, 64) int32 zigzag quant →
-    (N, 8, 8) uint8 pixels."""
+    (N, 8, 8) uint8 pixels. On the card both inputs must start on a
+    16-byte boundary (a fresh tensor does; a view may not)."""
     n = coefs.shape[0]
     if quant.dim() != 2 or quant.shape[1] != 64 or quant.shape[0] < 1:
         raise ValueError(f"quant: expected (P, 64), got {tuple(quant.shape)}")
@@ -76,6 +85,7 @@ def decode_datapath(coefs: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
         return decode_datapath_plain(coefs, quant)
     if coefs.device.type != "cuda":
         raise ValueError(f"unsupported device {coefs.device}")
+    _check_aligned("K2", ("coefs", coefs), ("quant", quant))
     out = torch.empty((n, 8, 8), dtype=torch.uint8, device=coefs.device)
     kernels.launch("vct_k2_decode_datapath", coefs.data_ptr(),
                    quant.data_ptr(), n, quant.shape[0], out.data_ptr())
@@ -113,10 +123,7 @@ def encode_datapath(pixels: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
         return encode_datapath_plain(pixels, quant)
     if pixels.device.type != "cuda":
         raise ValueError(f"unsupported device {pixels.device}")
-    for name, t in (("pixels", pixels), ("quant", quant)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: K3 reads 16-byte vectors; the data "
-                             "must start on a 16-byte boundary")
+    _check_aligned("K3", ("pixels", pixels), ("quant", quant))
     out = torch.empty((n, 64), dtype=torch.int32, device=pixels.device)
     kernels.launch("vct_k3_encode_datapath", pixels.data_ptr(),
                    quant.data_ptr(), n, quant.shape[0], out.data_ptr())

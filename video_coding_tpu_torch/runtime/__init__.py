@@ -1,7 +1,7 @@
 """Decoder, encoder and transcode sessions."""
 
 from .engine import (JpegDecoderSession, JpegEncoderSession,
-                     JpegTranscodeSession, resolve_device)
+                     JpegTranscodeSession, encode_jpeg, resolve_device)
 
 __all__ = ["JpegDecoderSession", "JpegEncoderSession",
-           "JpegTranscodeSession", "resolve_device"]
+           "JpegTranscodeSession", "encode_jpeg", "resolve_device"]

@@ -321,8 +321,8 @@ class JpegDecoderSession:
                   st.offset, st.values, blocks_per_segment=B,
                   n_components=len(self.components))
 
-    def _decode_flat_lanes(self, flat, starts, lens, seg_blocks, L: int,
-                           seg_div: int, init_bitpos=None, init_dc=None):
+    def _decode_flat_lanes(self, flat, starts, lens, seg_blocks, seg_div: int,
+                           init_bitpos=None, init_dc=None):
         """Lanes of the flat buffer → (S, seg_div, 64) coefficients through
         K1, or K7 with ``decode_gather='dma'``."""
         st = self.state
@@ -332,7 +332,7 @@ class JpegDecoderSession:
                   n_components=len(self.components),
                   init_bitpos=init_bitpos, init_dc=init_dc)
         if self.decode_gather == "dma":
-            return huffman_decode.decode_flat_staged(*args, L=L, **kw)
+            return huffman_decode.decode_flat_staged(*args, **kw)
         return huffman_decode.decode_flat(*args, **kw)
 
     @staticmethod
@@ -366,7 +366,7 @@ class JpegDecoderSession:
         flat, starts, lens, segb = (_upload(a, dev) for a in (
             self._join_flat(parts), starts, lens, segb))
         if flat_words_route(len(lens64), L, B, self.device_huffman):
-            coefs = self._decode_flat_lanes(flat, starts, lens, segb, L, B)
+            coefs = self._decode_flat_lanes(flat, starts, lens, segb, B)
         else:
             coefs = self._decode_segments(
                 self._gather_lanes(flat, starts, lens, L), segb)
@@ -428,8 +428,8 @@ class JpegDecoderSession:
         starts, lens, segb, bp0, dc0 = (_upload(a[order], dev)
                                         for a in lanes)
         coefs = self._decode_flat_lanes(
-            _upload(self._join_flat(flats), dev), starts, lens, segb,
-            _lane_bucket(int(lens64.max()), 6), stride, bp0, dc0)
+            _upload(self._join_flat(flats), dev), starts, lens, segb, stride,
+            bp0, dc0)
         return self._decode_tail_pool(
             coefs.view(-1, 64), _upload(inv_perm, dev).to(torch.int64), F,
             stride)
@@ -494,16 +494,18 @@ class JpegDecoderSession:
         return tuple(p[0] for p in
                      self.decode_device_batch_stacked([entropy_data]))
 
-    def decode_device(self, entropy_data: bytes) -> tuple:
-        """One frame → its planes as numpy arrays cropped to the frame's
-        actual size."""
+    def decode_device(self, entropy_data: bytes) -> Frame | list[Plane]:
+        """One frame → a ``Frame`` of its planes cropped to the frame's
+        actual size (three components), else a list of ``Plane``s."""
         return self._to_frame(self.decode_device_e2e(entropy_data))
 
-    def _to_frame(self, planes_dev) -> tuple:
-        return tuple(
-            np.ascontiguousarray(p.cpu().numpy()[:comp.actual_height,
-                                                 :comp.actual_width])
-            for comp, p in zip(self.components, planes_dev))
+    def _to_frame(self, planes_dev) -> Frame | list[Plane]:
+        planes = [Plane(data=np.ascontiguousarray(
+            p.cpu().numpy()[:comp.actual_height, :comp.actual_width]))
+            for comp, p in zip(self.components, planes_dev)]
+        if len(planes) == 3:
+            return Frame.of_planes(*planes)
+        return planes
 
 
 class JpegEncoderSession:
