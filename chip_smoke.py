@@ -62,6 +62,14 @@ Phases (any failure ends the run with a nonzero exit):
                  lanes of up to 1,500 bytes (many halves of its ring), an
                  all-0xFF lane, one symbol a block, with and without hooks,
                  real and malformed tables; K6 at two subsequence lengths;
+                 K5 at path C's shape on k5_rows (random rows without
+                 guard bytes at L = 64, 131, 2048 and path C's L, cut
+                 rows, long codes, all-zero and all-0xFF rows, one symbol a
+                 block, a climbing DC) with path C's and a luma-only
+                 schedule, real and malformed tables, a view one byte off
+                 a word; K5 and the lookup table alone under the profiler;
+                 K5's host path a call and its card time a call back to
+                 back; path C's longest lane in symbols;
   8. rates     — frames a second of decode_device_batch_iter on A and B
                  (median of 3 windows), one path B dispatch under the
                  profiler, and the host index scan's time;
@@ -71,7 +79,7 @@ Phases (any failure ends the run with a nonzero exit):
                  (2 frames), to device_pack="xla" and to K4 called on the
                  same coefficients; every stream decodes on the card
                  (PSNR); frames/s as the median of 3 windows; one dispatch
-                 under the profiler;
+                 under the profiler, with K8 alone in it;
  10. path F    — transcode_batch to ri=8 with the counts reset and read:
                  K1, K2, K3, K9, K8; bytes equal to the CPU session's for 2
                  frames; transcode_batch_iter MPix/s beside phase 5's;
@@ -80,6 +88,12 @@ Phases (any failure ends the run with a nonzero exit):
                  host coder's time (pure Python: seconds a frame);
  12. encode kernels — K8 and K9 on the arguments path E gave them, against
                  their plain versions (exact), K9 also beside table[idx];
+                 the share of K8's slots that hold bits; K8's bound
+                 counts the bytes that data needs (every input read once
+                 printed beside it); K8 on every case of k8_slots
+                 (lane counts off a CTA's, K = 1 and odd K, dense 0xFF,
+                 33..59-bit slots and 32/33/59 at chunk edges, 0xFF runs
+                 across chunks, lanes that end mid-byte) at three budgets;
                  symbol construction, the gather packer and K4 on the same
                  coefficients timed for the breakdown;
  13. a JSON line of per-kernel numbers;
@@ -157,15 +171,24 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def sm_clock() -> str:
+    """The card's SM clock and its maximum, as nvidia-smi reads them now
+    (a short kernel's time follows the clock the card is at)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def symbol_count(coefs: torch.Tensor) -> int:
-    """Huffman symbols of (N, 64) zigzag blocks: DC + one per nonzero AC
-    + one ZRL per 16 zeros before a nonzero + EOB unless position 63 is
+def block_symbols(coefs: torch.Tensor) -> torch.Tensor:
+    """Huffman symbols of each (N, 64) zigzag block: DC + one per nonzero
+    AC + one ZRL per 16 zeros before a nonzero + EOB unless position 63 is
     nonzero."""
     ac = coefs[:, 1:] != 0
     pos = torch.arange(1, 64, device=coefs.device)
@@ -173,9 +196,12 @@ def symbol_count(coefs: torch.Tensor) -> int:
     prev = torch.cummax(nz_pos, dim=1).values
     prev = torch.cat([torch.zeros_like(prev[:, :1]), prev[:, :-1]], dim=1)
     run = torch.where(ac, pos - prev - 1, 0)
-    zrl = (run // 16).sum()
-    eob = (coefs[:, 63] == 0).sum()
-    return int(coefs.shape[0] + ac.sum() + zrl + eob)
+    return 1 + ac.sum(1) + (run // 16).sum(1) + (coefs[:, 63] == 0)
+
+
+def symbol_count(coefs: torch.Tensor) -> int:
+    """Huffman symbols of (N, 64) zigzag blocks."""
+    return int(block_symbols(coefs).sum())
 
 
 class Spy:
@@ -209,17 +235,20 @@ def malformed_tables(dev, seed: int):
     return tuple(torch.from_numpy(a).to(dev) for a in (lo, hi, off, values))
 
 
+def huffman_code(lut, value) -> str:
+    """The code of ``value`` in a session's decode table, as a bit
+    string."""
+    idx = next(i for i in range(1 << lut.max_bits)
+               if lut.lengths[i] and lut.data[i] == value)
+    k = int(lut.lengths[idx])
+    return format(idx >> (lut.max_bits - k), f"0{k}b")
+
+
 def one_symbol_blocks(dec, n: int) -> np.ndarray:
     """A luma segment of n all-zero blocks: DC category 0 and EOB, block
     after block (one symbol a block past the DC)."""
-    def code(lut, value):
-        idx = next(i for i in range(1 << lut.max_bits)
-                   if lut.lengths[i] and lut.data[i] == value)
-        k = int(lut.lengths[idx])
-        return format(idx >> (lut.max_bits - k), f"0{k}b")
-
     luma = dec.components[0]
-    bits = (code(luma.dc_tab, 0) + code(luma.ac_tab, 0)) * n
+    bits = (huffman_code(luma.dc_tab, 0) + huffman_code(luma.ac_tab, 0)) * n
     bits += "1" * (-len(bits) % 8)
     return np.frombuffer(int(bits, 2).to_bytes(len(bits) // 8, "big"),
                          np.uint8)
@@ -356,6 +385,180 @@ def k4_bound_bytes(qc_seg, valid, comp_sched, dctab, actab, m_out) -> int:
     return (sum(t.numel() * t.element_size()
                 for t in (qc_seg, valid, comp_sched, dctab, actab))
             + qc_seg.shape[0] * (m_out + 4))
+
+
+K8_CASES = ("mixed", "dense 0xFF", "33 to 59", "chunk edges",
+            "0xFF across chunks", "mid-byte ends")
+
+
+def k8_slots(case: str, S: int, K: int, rng):
+    """(c_hi, c_lo, c_len (S, K), raw_bytes_len (S,)) int32 slot arrays at
+    K8's edges; values are random garbage above each length unless said:
+      mixed               lengths 0..59, half empty, every 11th 32, lane 0
+                          opens with -3, 64, 60, 59 (clamped); the second
+                          half of the lanes all-ones (runs of 0xFF);
+      dense 0xFF          all-ones values of 1..59 bits in every slot;
+      33 to 59            every slot 33..59 bits;
+      chunk edges         32, 33 or 59 bits in the two slots either side of
+                          every multiple of 32 slots, after a 3-bit head;
+      0xFF across chunks  all-ones bytes either side of every multiple of
+                          32 slots after a 0..7-bit head, and one lane
+                          all-ones from slot 100 to 160;
+      mid-byte ends       lengths 0..13, no pad slot.
+    No lane is padded to a byte boundary, so most end mid-byte, and lane 1
+    is empty. raw_bytes_len is each lane's whole bytes."""
+    c_hi = rng.integers(-2**31, 2**31, (S, K), dtype=np.int64) \
+        .astype(np.int32)
+    c_lo = rng.integers(-2**31, 2**31, (S, K), dtype=np.int64) \
+        .astype(np.int32)
+    near = (np.arange(K) + 2) % 32 < 4     # slots 30, 31, 32, 33, 62, ...
+    if case == "mixed":
+        c_len = rng.integers(0, 60, (S, K))
+        c_len[rng.random((S, K)) < 0.5] = 0
+        c_len[:, ::11] = 32
+        c_len[0, :4] = (-3, 64, 60, 59)[:K]
+        c_hi[S // 2:] = -1
+        c_lo[S // 2:] = -1
+    elif case == "dense 0xFF":
+        c_len = rng.integers(1, 60, (S, K))
+        c_hi[:], c_lo[:] = -1, -1
+    elif case == "33 to 59":
+        c_len = rng.integers(33, 60, (S, K))
+    elif case == "chunk edges":
+        c_len = np.where(near, rng.choice([32, 33, 59], (S, K)), 0)
+        c_len[:, 0] = 3
+    elif case == "0xFF across chunks":
+        c_len = np.where(near, np.full((S, K), 8), 0)
+        c_len[:, 0] = rng.integers(0, 8, S)
+        c_len[0, 100:160] = 8
+        c_hi[:], c_lo[:] = -1, -1
+    elif case == "mid-byte ends":
+        c_len = rng.integers(0, 14, (S, K))
+    else:
+        raise ValueError(case)
+    c_len = c_len.astype(np.int32)
+    if S > 1:
+        c_len[1] = 0
+    raw = (np.clip(c_len, 0, 59).sum(axis=1) >> 3).astype(np.int32)
+    return c_hi, c_lo, c_len, raw
+
+
+def k8_budgets(raw: np.ndarray):
+    """(m_raw, m_out) pairs for k8_slots: one that fits every lane (0xFF
+    stuffing at most doubles a lane), one a byte short in m_raw, and one
+    m_out that cuts the longest lanes inside a chunk."""
+    top = int(raw.max())
+    return ((top, 2 * top + 8), (max(top - 1, 0), 2 * top + 8),
+            (top, max(1, top // 3 + 5)))
+
+
+def k8_need_bytes(c_hi, c_lo, c_len, m_out: int) -> int:
+    """K8's bytes as this data needs them, as the kernel reads them: c_len
+    in full, the 32-byte sectors of c_lo that hold a slot with bits and
+    those of c_hi that hold a slot of more than 32 bits (lengths clamped to
+    0..59, each array at its own alignment), the lane arrays and the
+    output rows once."""
+    S, K = c_len.shape
+    n = c_len.clamp(0, 59).view(-1)
+
+    def sectors(arr, need):
+        idx = torch.nonzero(need).view(-1)
+        return int(torch.unique((idx * 4 + arr.data_ptr() % 32) // 32)
+                   .numel())
+
+    return (4 * S * K + 32 * sectors(c_lo, n > 0)
+            + 32 * sectors(c_hi, n > 32) + S * m_out + 3 * 4 * S + 4)
+
+
+def k5_rows(dec, S: int, L: int, B: int, rng) -> np.ndarray:
+    """(S, L) uint8 rows for K5 that reach past their end: random bytes
+    without guard bytes, every third row cut to zeros after L/3, a row of
+    mostly 0xFE (long codes), all-zero and all-0xFF rows, one symbol a
+    block, and a luma DC that climbs by 2047 a block."""
+    rows = rng.integers(0, 255, (S, L)).astype(np.uint8)
+    rows[::3, L // 3:] = 0
+    rows[2] = np.where(rng.random(L) < .5, 0xFE, rows[2])
+    rows[3], rows[4] = 0, 0xFF
+    special = {5: one_symbol_blocks(dec, B), 6: dc_ramp_blocks(dec, B)}
+    for r, data in special.items():
+        if r < S:
+            n = min(len(data), L)
+            rows[r] = 0
+            rows[r, :n] = data[:n]
+    return rows
+
+
+def dc_ramp_blocks(dec, n: int) -> np.ndarray:
+    """A luma segment of n blocks, each DC category 11 with eleven 1 bits
+    (+2047) and EOB: the DC predictor passes 32767 after 17 blocks."""
+    luma = dec.components[0]
+    bits = (huffman_code(luma.dc_tab, 11) + "1" * 11
+            + huffman_code(luma.ac_tab, 0)) * n
+    bits += "1" * (-len(bits) % 8)
+    return np.frombuffer(int(bits, 2).to_bytes(len(bits) // 8, "big"),
+                         np.uint8)
+
+
+def adversarial_padded_checks(k1, captured_k5, dec) -> None:
+    """Phase 7's edge cases for K5 at path C's shape (its lane count,
+    blocks a segment and tables) against its plain version (any difference
+    raises): k5_rows at L = 64, 131, 2048 and path C's own L, with path
+    C's schedule and a luma-only one, the session's tables and malformed
+    ones, on the matrix and on a view of it one byte past a word
+    boundary."""
+    (segbytes, segb, sched, *tabs), kw = captured_k5
+    dev = segbytes.device
+    S, L_c = segbytes.shape
+    B = kw["blocks_per_segment"]
+    rng = np.random.default_rng(SEED)
+    bad = malformed_tables(dev, SEED + 1)
+    runs = 0
+    for L in (64, 131, 2048, L_c):
+        rows = torch.from_numpy(k5_rows(dec, S, L, B, rng)).to(dev)
+        buf = torch.zeros(S * L + 8, dtype=torch.uint8, device=dev)
+        buf[1:1 + S * L] = rows.view(-1)
+        for sched_x in (sched, torch.zeros_like(sched)):
+            for tab_name, tabs_x in (("real", tabs), ("malformed", bad)):
+                ref = k1.decode_segments_plain(rows, segb, sched_x, *tabs_x,
+                                               **kw)
+                for view in (rows, buf[1:1 + S * L].view(S, L)):
+                    got = k1.decode_segments(view, segb, sched_x, *tabs_x,
+                                             **kw)
+                    if not torch.equal(got, ref):
+                        raise RuntimeError(
+                            f"K5 differs from its plain version on "
+                            f"adversarial rows at L={L} ({tab_name} tables)")
+                    runs += 1
+    log(f"K5 adversarial rows at path C's shape ({S} lanes of {B} blocks): "
+        f"exact in {runs} runs (L = 64, 131, 2048 and {L_c}; path C's and a "
+        "luma-only schedule; real and malformed tables; a view one byte "
+        "off a word)")
+
+
+def adversarial_pack_checks(S_e: int, dev) -> None:
+    """Phase 12's edge cases for K8 against its plain version (any
+    difference raises): every case of k8_slots at path E's lane count and
+    301 slots, at 13 lanes of one slot and at 70 lanes of 517, each at the
+    three budgets of k8_budgets."""
+    from video_coding_tpu_torch.entropy import pack_stuff as k8
+
+    rng = np.random.default_rng(SEED)
+    runs = 0
+    for S, K in ((S_e, 301), (13, 1), (70, 517)):
+        for case in K8_CASES:
+            arrays = k8_slots(case, S, K, rng)
+            args = [torch.from_numpy(a).to(dev) for a in arrays]
+            for m_raw, m_out in k8_budgets(arrays[3]):
+                got = k8.pack_stuff(*args, m_raw=m_raw, m_out=m_out)
+                ref = k8.pack_stuff_plain(*args, m_raw=m_raw, m_out=m_out)
+                if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    raise RuntimeError(f"K8 differs from its plain version "
+                                       f"on {case} slots, S={S}, K={K}, "
+                                       f"m_raw={m_raw}, m_out={m_out}")
+                runs += 1
+    log(f"K8 adversarial slots: exact in {runs} runs ({', '.join(K8_CASES)};"
+        f" S x K = {S_e} x 301, 13 x 1, 70 x 517; budgets that fit, a byte "
+        "short in m_raw and an m_out cut inside a chunk)")
 
 
 def adversarial_encode_checks(n_k3: int, k4_args, n_blocks: int) -> None:
@@ -884,7 +1087,9 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def breakdown(label, call, note=""):
+    def device_profile(call):
+        """One call under torch.profiler: (wall ms, {kernel or copy name:
+        [device ms, count]})."""
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -893,18 +1098,51 @@ def main() -> int:
             wall_ms = (time.perf_counter() - t0) * 1e3
         # the profiler's raw activity list: every kernel and copy on the
         # card, whether or not it was matched to a host-side op
-        by_name: dict[str, float] = {}
+        by_name: dict[str, list] = {}
         for e in prof.profiler.kineto_results.events():
             if e.device_type() == DeviceType.CUDA:
                 key = e.name().replace("(anonymous namespace)::", "") \
                     .split("(")[0][:48]
-                by_name[key] = by_name.get(key, 0.0) + e.duration_ns() / 1e6
-        busy_ms = sum(by_name.values())
+                slot = by_name.setdefault(key, [0.0, 0])
+                slot[0] += e.duration_ns() / 1e6
+                slot[1] += 1
+        return wall_ms, by_name
+
+    def launch_ms(by_name, *kernel_names):
+        """Mean device ms a launch of each named kernel, summed over the
+        names; None when the profile holds one of them not at all (the
+        profiler has been seen to return no events)."""
+        total = 0.0
+        for n in kernel_names:
+            hits = [v for k, v in by_name.items() if n in k]
+            if not hits:
+                return None
+            total += sum(v[0] for v in hits) / sum(v[1] for v in hits)
+        return total
+
+    def alone_ms(call, *kernel_names):
+        """launch_ms of the kernels in a profile of call, the profile taken
+        up to three times until it shows them; None if it never does."""
+        for _ in range(3):
+            ms = launch_ms(device_profile(call)[1], *kernel_names)
+            if ms is not None:
+                return ms
+        return None
+
+    def fmt_ms(ms) -> str:
+        return "not measured (the profile held no such kernel)" \
+            if ms is None else f"{ms:.4f} ms"
+
+    def breakdown(label, call, note=""):
+        wall_ms, by_name = device_profile(call)
+        busy_ms = sum(v[0] for v in by_name.values())
         log(f"breakdown: one {label} (F={FRAMES}) {wall_ms:.2f} ms wall "
             f"under the profiler, device busy {busy_ms:.3f} ms "
             f"({1 - busy_ms / wall_ms:.1%} idle){note}")
-        for key, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        for key, (ms, _n) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:10]:
             log(f"  device {ms:8.3f} ms  {key}")
+        return by_name
 
     breakdown("transcode_batch", lambda: trans.transcode_batch(payloads),
               f"; host destuff of the {FRAMES} frames alone "
@@ -938,7 +1176,8 @@ def main() -> int:
             else:
                 call = lambda: sess.decode_device_batch(pay_p)  # noqa: E731
             got, seen = counted(call, (kname, "K2") + (
-                ("LUT",) if kname in ("K1+hooks", "K6", "K7") else ()))
+                ("LUT",) if kname in ("K1+hooks", "K5", "K6", "K7")
+                else ()))
             wall = time.perf_counter() - t0
         finally:
             setattr(k1, wname, wrapper)
@@ -1001,6 +1240,47 @@ def main() -> int:
         del out
     time_rows(rows, 1)
     decode_redesign_checks(k1, captured, dec)
+    adversarial_padded_checks(k1, captured["K5"], dec)
+    # K5 alone under the profiler, and path C's lanes in symbols
+    a5, kw5 = captured["K5"]
+    S5 = a5[0].shape[0]
+    per_block = block_symbols(k1.decode_segments(*a5, **kw5).view(-1, 64))
+    per_block = per_block.view(S5, -1)
+    decoded = torch.arange(per_block.shape[1], device=dev)[None] < \
+        a5[1].to(torch.int64)[:, None]
+    lane_sym = torch.where(decoded, per_block, 0).sum(1)
+    def k5_calls():
+        for _ in range(5):
+            k1.decode_segments(*a5, **kw5)
+
+    def k5_host_ms(n=50):
+        """Host ms a K5 call (checks, allocations, launches, no wait for
+        the card), and the card's ms a call when the calls run back to
+        back, from the same n calls."""
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            k1.decode_segments(*a5, **kw5)
+        host = (time.perf_counter() - t0) * 1e3 / n
+        e.record()
+        e.synchronize()
+        return host, s.elapsed_time(e) / n
+
+    k5_calls()
+    k5_host, k5_pipe = k5_host_ms()
+    log(f"K5 on path C, 50 calls back to back: the wrapper's host path "
+        f"{k5_host:.4f} ms a call, the card {k5_pipe:.4f} ms a call")
+    log(f"K5 on path C: {S5} lanes of {a5[0].shape[1]} bytes, longest lane "
+        f"{int(lane_sym.max())} symbols (mean "
+        f"{float(lane_sym.double().mean()):.1f}); under the profiler (5 "
+        f"calls) the kernel alone "
+        f"{fmt_ms(alone_ms(k5_calls, 'huffman_decode_padded_kernel'))}, the "
+        f"lookup table "
+        f"{fmt_ms(alone_ms(k5_calls, 'lut_level1', 'lut_level2'))} a call "
+        f"(SM clock just after: {sm_clock()}) on {smi}")
 
     # 8. rates of the pipelined decode on A and B, and the host index scan
     def fps(sess, pay, n):
@@ -1120,8 +1400,11 @@ def main() -> int:
     log(f"encode_device_batch path E {WIDTH}x{HEIGHT} q75 ri={RI_E} "
         f"F={FRAMES}: median {w[1]:.2f} frames/s (windows "
         f"{', '.join(f'{x:.2f}' for x in w)}) on {smi}")
-    breakdown("encode_device_batch (path E)",
-              lambda: enc_e.encode_device_batch(frame_objs))
+    by_name = breakdown("encode_device_batch (path E)",
+                        lambda: enc_e.encode_device_batch(frame_objs))
+    log(f"  K8 alone in this dispatch: "
+        f"{fmt_ms(launch_ms(by_name, 'pack_stuff_kernel'))} (SM clock just "
+        f"after: {sm_clock()}) on {smi}")
 
     # 10. path F: the ri=1 sources transcoded to ri=8
     trans_f = JpegTranscodeSession(header, quality=75, restart_interval=RI_E)
@@ -1172,12 +1455,21 @@ def main() -> int:
                     compare("K8 lens", lens8, lens8_p),
                     compare("K8 overflow", ovf8, ovf8_p))
     n_slots = int((a8[2] > 0).sum())
+    n_hi = int((a8[2] > 32).sum())
     k8_bytes = 3 * 4 * S_e * K_e + 4 * S_e + out8.numel() + 4 * S_e + 4
     k8_ops = 4.0 * S_e * K_e + 16.0 * n_slots + 6.0 * int(lens8.sum())
+    need_bytes = k8_need_bytes(*a8[:3], kw8["m_out"])
+    contract_ms, contract_by = bound_ms(k8_bytes, k8_ops)
     log(f"K8 input: {n_slots} of {S_e * K_e} slots hold bits "
-        f"({n_slots / (S_e * K_e):.1%}); {int(lens8.sum())} bytes out, "
-        f"longest lane {int(lens8.max())}")
+        f"({n_slots / (S_e * K_e):.1%}), {n_hi} more than 32; "
+        f"{int(lens8.sum())} bytes out, longest lane {int(lens8.max())}; "
+        f"every input read once would be {contract_ms:.4f} ms "
+        f"({contract_by}: {k8_bytes / 1e6:.1f} MB); K8's bound below counts "
+        f"the bytes this data needs (c_len, the c_lo sectors with bits, the "
+        f"c_hi sectors with more than 32, the output): "
+        f"{need_bytes / 1e6:.1f} MB")
     del out8_p, lens8_p
+    adversarial_pack_checks(S_e, dev)
     got9 = k9.table_lookup(*a9)
     err["K9"] = compare("K9", got9, k9.table_lookup_plain(*a9))
     compare("K9 against table[idx]", got9, a9[0][a9[1]])
@@ -1187,7 +1479,7 @@ def main() -> int:
         ("K8", "video_coding_tpu_torch/csrc/pack_stuff.cu",
          "video_coding_tpu/entropy/pallas_encode.py:275",
          lambda: k8.pack_stuff(*a8, **kw8),
-         lambda: k8.pack_stuff_plain(*a8, **kw8), k8_bytes, k8_ops),
+         lambda: k8.pack_stuff_plain(*a8, **kw8), need_bytes, k8_ops),
         ("K9", "video_coding_tpu_torch/csrc/table_lookup.cu",
          "video_coding_tpu/ops/lookup.py:55",
          lambda: k9.table_lookup(*a9),
@@ -1195,6 +1487,9 @@ def main() -> int:
          8 * n9 + 4 * a9[0].numel(), 2.0 * n9,
          lambda: a9[0][a9[1]])]
     time_rows(rows, 1)
+    ms8 = next(row[3] for row in timed if row[0] == "K8")
+    log(f"K8: {contract_ms / ms8:.1%} of the every-input-once time "
+        f"({contract_ms:.4f} ms) as timed")
     sym_args = (qc_seg_e.view(-1, 64), enc_e._comp_sched.repeat(S_e),
                 st_e.prev_same_comp, st_e.dctab, st_e.actab)
     B_e = enc_e.blocks_per_segment

@@ -182,6 +182,56 @@ def test_padded_kernels_on_corrupt_rows(gpu, kind, L):
     assert torch.equal(fn(*args, **kw), plain(*args, **kw))
 
 
+@pytest.mark.parametrize("B", [6, 30])
+@pytest.mark.parametrize("malformed", [False, True])
+@pytest.mark.parametrize("L", [64, 131, 2048])
+def test_padded_kernel_on_adversarial_rows(gpu, L, malformed, B):
+    """K5 on chip_smoke.k5_rows (random rows without guard bytes, cut
+    rows, long codes, all-zero and all-0xFF rows, one symbol a block, a DC
+    that passes int16) with a luma-only and a 4:2:0 schedule, the
+    session's tables and malformed ones; on the matrix and on a view of it
+    one byte past a word boundary; lanes of 6 blocks (kept in shared
+    memory until the CTA is done) and of 30 (flushed block by block); the
+    output from torch.empty with the allocator's next block poisoned, so
+    every block must be written."""
+    from chip_smoke import k5_rows
+
+    dec, tabs = _tables(gpu)
+    if malformed:
+        tabs = _malformed_tables(gpu, seed=L)
+    rng = np.random.default_rng(L)
+    S = 301
+    rows = torch.from_numpy(k5_rows(dec, S, L, B, rng)).to(gpu)
+    shifted = torch.empty(S * L + 8, dtype=torch.uint8, device=gpu)
+    shifted[1:1 + S * L] = rows.view(-1)
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    segb[:8] = B
+    segb = torch.from_numpy(segb).to(gpu)
+    kw = dict(blocks_per_segment=B, n_components=3)
+    for sched in (np.zeros(B), np.resize(dec.comp_idx[:6], B)):
+        sched = torch.from_numpy(sched.astype(np.int32)).to(gpu)
+        ref = huffman_decode.decode_segments_plain(rows, segb, sched, *tabs,
+                                                   **kw)
+        for seg in (rows, shifted[1:1 + S * L].view(S, L)):
+            poison = torch.full((S * B * 64 * 4,), 0x7F, dtype=torch.uint8,
+                                device=gpu)
+            torch.cuda.synchronize()
+            del poison
+            before = (huffman_decode.decode_segments.launches,
+                      huffman_decode.decode_lut.launches)
+            got = huffman_decode.decode_segments(seg, segb, sched, *tabs,
+                                                 **kw)
+            assert (huffman_decode.decode_segments.launches,
+                    huffman_decode.decode_lut.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+            assert torch.equal(got, ref)
+    if not malformed and L >= 131 and B == 30:  # the DC ramp, luma-only
+        ref = huffman_decode.decode_segments_plain(
+            rows, segb, torch.zeros(B, dtype=torch.int32, device=gpu),
+            *tabs, **kw)
+        assert int(ref[6, :, 0].max()) > 32767
+
+
 @pytest.mark.parametrize("staged", [False, True])
 def test_flat_kernels_on_corrupt_lanes(gpu, staged):
     """Random bytes, start bits and predictors; lanes of up to 700 bytes,
@@ -370,6 +420,36 @@ def test_pack_stuff_kernel_matches_plain(gpu, S, K):
         ref = pack_stuff.pack_stuff_plain(*args, m_raw=m_raw, m_out=m_out)
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S,K", [(13, 1), (70, 131), (9, 3121)])
+@pytest.mark.parametrize("case", ["mixed", "dense 0xFF", "33 to 59",
+                                  "chunk edges", "0xFF across chunks",
+                                  "mid-byte ends"])
+def test_pack_stuff_kernel_on_adversarial_slots(gpu, case, S, K):
+    """K8 on chip_smoke.k8_slots: lane counts off a CTA's, K = 1 and odd
+    K, dense 0xFF output, lengths 33..59 and 32/33/59 at chunk edges, lanes
+    that end mid-byte, an empty lane; at a budget that fits, one a byte
+    short in m_raw and an m_out that cuts lanes inside a chunk. The output
+    comes from torch.empty with the allocator's next block poisoned, so
+    every byte of it must be written."""
+    from chip_smoke import k8_budgets, k8_slots
+
+    rng = np.random.default_rng(S + K)
+    arrays = k8_slots(case, S, K, rng)
+    args = [torch.from_numpy(a).to(gpu) for a in arrays]
+    overflows = []
+    for m_raw, m_out in k8_budgets(arrays[3]):
+        poison = torch.full((S * m_out,), 0xA5, dtype=torch.uint8,
+                            device=gpu)
+        torch.cuda.synchronize()
+        del poison
+        got = pack_stuff.pack_stuff(*args, m_raw=m_raw, m_out=m_out)
+        ref = pack_stuff.pack_stuff_plain(*args, m_raw=m_raw, m_out=m_out)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        overflows.append(bool(got[2]))
+    assert overflows[:2] == [False, bool(arrays[3].max() > 0)]
 
 
 @pytest.mark.parametrize("ri,pack,kernel", [(6, "pallas", "K8"),

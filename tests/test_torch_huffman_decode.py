@@ -569,3 +569,145 @@ def test_decode_lut_agrees_with_match_on_every_window(tables):
         # canonical codes: a few prefixes of codes longer than LUT_BITS,
         # all in level-2 blocks
         assert 0 < len(marked) <= huffman_decode.LUT_POOL
+
+
+# --- K5's word source and values, modelled -----------------------------------
+
+def _k5_constant(name: str) -> int:
+    text = (CSRC / "huffman_decode_padded.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def _k5_lanes() -> int:
+    """Rows a K5 CTA decodes (and stages)."""
+    return _k5_constant("kWarps") * _k5_constant("kLanesPerWarp")
+
+
+class _PaddedWordsModel:
+    """K5's ``PaddedWords``: word j of row s is the aligned word of memory
+    at seg[4·(w0 + j) - mis], w0 = (s·L + mis) // 4, for a matrix whose
+    first byte lies mis bytes past a word boundary; bytes outside the
+    matrix read as zero. ``staged``: the CTA that holds row s has copied
+    the words of its rows, and a word past them reads as zero."""
+
+    def __init__(self, seg: np.ndarray, s: int, mis: int, staged: bool):
+        S, L = seg.shape
+        self.flat, self.mis = seg.reshape(-1), mis
+        self.w0 = (s * L + mis) >> 2
+        self.last = None
+        if staged:
+            n = _k5_lanes()
+            end = min((s // n + 1) * n, S) * L
+            self.last = (end - 1 + mis) >> 2
+
+    def word(self, j: int) -> int:
+        if self.last is not None and self.w0 + j > self.last:
+            return 0
+        a = 4 * (self.w0 + j) - self.mis
+        return int.from_bytes(bytes(
+            int(self.flat[a + i]) if 0 <= a + i < self.flat.size else 0
+            for i in range(4)), "big")
+
+
+class _PaddedReaderModel:
+    """K5's ``PaddedReader``: below bit 8·(L - 3) the row's bits through
+    the bit window, past it the last window (bytes L-4..L-1) at offset
+    p % 8 when L - 3 is a multiple of kWindowTile, else zero."""
+
+    def __init__(self, seg: np.ndarray, s: int, mis: int,
+                 staged: bool = False):
+        L = seg.shape[1]
+        self.win = _BitWindowModel(_PaddedWordsModel(seg, s, mis, staged))
+        self.off0 = 8 * ((s * L + mis) & 3)
+        self.tail_lim = 8 * (L - 3)
+        self.tail = int.from_bytes(bytes(seg[s, L - 4:]), "big") \
+            if (L - 3) % _k5_constant("kWindowTile") == 0 else 0
+
+    def peek16(self, p: int) -> int:
+        if p >= self.tail_lim:
+            return (self.tail >> (16 - (p & 7))) & 0xFFFF
+        return self.win.peek16(self.off0 + p)
+
+
+# L % 4 != 0 (67, 131, 259), window counts that are a tile multiple (131,
+# 259) and not (64, 67, 2048), every misalignment of the matrix, and rows
+# read from global memory or from a CTA's staged copy (the last row of a
+# CTA among them)
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("L", [64, 67, 131, 259, 2048])
+def test_padded_reader_model_matches_plain_peek(L, staged):
+    rng = np.random.default_rng(L)
+    n = _k5_lanes()
+    rows = [0, n - 1, n, n + 1] if staged else [0, 1, 2]
+    S = rows[-1] + 1
+    seg = rng.integers(0, 256, (S, L)).astype(np.uint8)
+    peek = huffman_decode._window_peek(_t(seg), 1,
+                                       _k5_constant("kWindowTile"))
+    # every bit of the row and past it, then peeks far past the row
+    pos = np.concatenate([np.arange(8 * L + 300),
+                          8 * L + rng.integers(300, 1 << 20, 200)])
+    for mis in range(4):
+        readers = [_PaddedReaderModel(seg, s, mis, staged) for s in rows]
+        for p in pos:
+            want = peek(torch.full((S,), int(p), dtype=torch.int64))
+            got = [r.peek16(int(p)) for r in readers]
+            assert got == want[rows].tolist(), (mis, int(p))
+
+
+@pytest.mark.parametrize("L,luma_only", [(64, True), (131, False)])
+def test_padded_reader_model_decodes_as_plain(L, luma_only):
+    """The reader model feeds the symbol loop (values unsaturated) and
+    gives decode_segments_plain's coefficients on chip_smoke.k5_rows, with
+    a luma-only schedule (the DC ramp row passes int16) and a 4:2:0 one."""
+    from chip_smoke import k5_rows
+
+    dec, tabs = _session_tables()
+    rng = np.random.default_rng(L + 1)
+    S, B = 12, 30
+    rows = k5_rows(dec, S, L, B, rng)
+    segb = _t(np.array([B] * 8 + [12, 0, 1, B], np.int32))
+    sched = np.zeros(B) if luma_only else np.resize(dec.comp_idx[:6], B)
+    sched = _t(sched.astype(np.int32))
+    kw = dict(blocks_per_segment=B, n_components=3)
+    ref = huffman_decode.decode_segments_plain(_t(rows), segb, sched, *tabs,
+                                               **kw)
+    readers = [_PaddedReaderModel(rows, s, 1, staged=True)
+               for s in range(S)]
+
+    def peek16(pos):
+        return torch.tensor([r.peek16(int(p)) for r, p in zip(readers, pos)],
+                            dtype=torch.int64)
+
+    got = huffman_decode._symbol_loop_plain(
+        peek16, segb, sched, *tabs, saturate=False,
+        total_cap=huffman_decode.max_steps(B), block_cap=None, **kw)
+    assert torch.equal(got, ref)
+    if luma_only:
+        assert int(ref[6, :, 0].max()) > 32767        # the DC ramp row
+
+
+def test_unsaturated_dc_matches_pallas():
+    """A luma DC that climbs by 2047 a block passes int16 in K5's plain
+    version and the Pallas kernel alike; K1 saturates it."""
+    from chip_smoke import dc_ramp_blocks
+
+    dec, _segbytes, _segb = _segment_inputs("420", 64, 48, 75, 1, seed=13)
+    B, C = 24, len(dec.components)
+    data = dc_ramp_blocks(dec, B)
+    rows = np.zeros((2, 131), np.uint8)
+    rows[0, :len(data)] = data
+    rows[1, :len(data) // 2] = data[:len(data) // 2]
+    segb = np.array([B, B], np.int32)
+    sched = np.zeros(B, np.int32)
+    tabs = tpu_decode.range_tables(dec.tables)
+    kw = dict(blocks_per_segment=B, n_components=C)
+    ref = np.asarray(pallas_decode.decode_segments_pallas(
+        jnp.asarray(rows), jnp.asarray(segb), jnp.asarray(sched),
+        *map(jnp.asarray, tabs), interpret=True, **kw))
+    got = huffman_decode.decode_segments(_t(rows), _t(segb), _t(sched),
+                                         *map(_t, tabs), **kw).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got[0, -1, 0] == 2047 * B > 32767
+    k1 = huffman_decode.decode_segments_lanes(
+        _t(rows), _t(segb), _t(sched), *map(_t, tabs), **kw).numpy()
+    assert k1[0, -1, 0] == 32767

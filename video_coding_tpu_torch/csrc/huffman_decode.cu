@@ -100,15 +100,17 @@ __global__ void __launch_bounds__(kThreads) huffman_decode_kernel(
                   reinterpret_cast<char*>(smem) + lut_smem_bytes(T, V)) +
               threadIdx.x * kBufHalves};
   bb.clear();
+  GlobalBlocks sink{bb, out + (size_t)lane * B * 64};
   const int mis = (int)(reinterpret_cast<uintptr_t>(flat) & 3);
   const long long start = (long long)starts[lane] + mis;
   LaneReader rd{{FlatWords{flat, flat_len, mis, start >> 2,
                            start - mis + lens[lane]}},
                 8 * (int)(start & 3)};
-  decode_lane_lut(rd, tb, lut, s_comp, comp_sched, min(seg_blocks[lane], B),
-                  B, C, max_steps, init_bitpos ? init_bitpos[lane] : 0,
-                  init_dc ? init_dc + (size_t)lane * C : nullptr, bb,
-                  out + (size_t)lane * B * 64);
+  decode_lane_lut<true>(rd, tb, lut, s_comp, comp_sched,
+                        min(seg_blocks[lane], B), B, C, max_steps,
+                        init_bitpos ? init_bitpos[lane] : 0,
+                        init_dc ? init_dc + (size_t)lane * C : nullptr,
+                        sink);
 }
 
 }  // namespace

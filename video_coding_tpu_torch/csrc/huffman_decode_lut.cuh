@@ -1,9 +1,9 @@
-// Shared device code of the redesigned Huffman decode kernels K1, K6 and
-// K7: the direct-lookup table beside the range tables, a bit window fed by
-// aligned 32-bit word loads, the one-symbol decode step, a per-thread
+// Shared device code of the redesigned Huffman decode kernels K1, K5, K6
+// and K7: the direct-lookup table beside the range tables, a bit window fed
+// by aligned 32-bit word loads, the one-symbol decode step, a per-thread
 // int16 block buffer that leaves as whole 16-byte stores, and the lane
-// loop of K1 and K7 (decode_lane_lut), which differ only in their word
-// source.
+// loop of K1, K5 and K7 (decode_lane_lut), which differ in their word
+// source and, for K5, in leaving values unsaturated.
 //
 // The lookup table (built by huffman_lut.cu, plain version
 // huffman_decode.decode_lut_plain) has two levels. Level 1 has 2^kLutBits
@@ -40,7 +40,7 @@ struct Lut {
 };
 
 // Builds the table into lut (lut_entries(T) int16) on `stream`
-// (huffman_lut.cu); K1, K6 and K7 call it ahead of their decode.
+// (huffman_lut.cu); K1, K5, K6 and K7 call it ahead of their decode.
 extern "C" int vct_huffman_lut(const int32_t* lo, const int32_t* hi,
                                const int32_t* offset, int T,
                                const int32_t* values, int V, int16_t* lut,
@@ -51,9 +51,29 @@ __host__ __device__ inline size_t lut_smem_bytes(int T, int V) {
          (size_t)lut_entries(T) * sizeof(uint16_t);
 }
 
+// Copies from global to shared memory that no register passes through, so
+// that a thread has all of its in flight at once; copy_async_wait_all
+// waits for the thread's own.
+__device__ inline void copy_async16(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem_src)
+               : "memory");
+}
+__device__ inline void copy_async4(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem_src)
+               : "memory");
+}
+__device__ inline void copy_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Copy the range tables and the lookup table into shared memory (every
-// thread of the CTA calls this; it ends in a barrier). The lookup table
-// follows the range tables; both are 16-byte aligned.
+// thread of the CTA calls this; it ends in a barrier, after the thread's
+// earlier copy_async copies have landed too). The lookup table follows the
+// range tables; both are 16-byte aligned.
 __device__ inline Tables stage_tables_lut(int32_t* smem, const int32_t* lo_g,
                                           const int32_t* hi_g,
                                           const int32_t* off_g, int T,
@@ -62,7 +82,9 @@ __device__ inline Tables stage_tables_lut(int32_t* smem, const int32_t* lo_g,
   int4* dst = reinterpret_cast<int4*>(smem + table_ints(T, V));
   const int4* src = reinterpret_cast<const int4*>(lut_g);
   const int n = lut_entries(T) * 2 / 16;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    copy_async16(dst + i, src + i);
+  copy_async_wait_all();
   lut.l1 = reinterpret_cast<const uint16_t*>(dst);
   lut.pool = lut.l1 + T * kLutSize;
   return stage_tables(smem, lo_g, hi_g, off_g, T, values_g, V);
@@ -159,6 +181,19 @@ __device__ inline void store_zero_block(int32_t* dst) {
   for (int i = 0; i < 16; ++i) o[i] = make_int4(0, 0, 0, 0);
 }
 
+// The block sink of decode_lane_lut for K1 and K7: block blk of the lane's
+// (B, 64) output dst leaves from a BlockBuf as sixteen 16-byte stores when
+// it is done, and a block the lane does not reach as zeros.
+struct GlobalBlocks {
+  BlockBuf bb;
+  int32_t* dst;
+  __device__ void put(int cof, int v) { bb.put(cof, v); }
+  __device__ void flush(int blk, int dc) {
+    bb.flush(dst + (size_t)blk * 64, dc);
+  }
+  __device__ void zero(int blk) { store_zero_block(dst + (size_t)blk * 64); }
+};
+
 // The component of each of the schedule's first kSchedStage blocks, as
 // bytes in shared memory (later blocks read comp_sched itself). Every
 // thread of the CTA calls this; the caller's next barrier publishes it.
@@ -187,20 +222,25 @@ __device__ inline int add_dc(int (&dc)[kMaxComponents], int comp, int v) {
   return r;
 }
 
-// One lane of K1 or K7: blocks of the schedule from bit `bitpos` of the
-// reader's stream with the DC predictors dc0[0..C) (null: zeros), until
-// nblk blocks or
-// max_steps symbols — values saturated to int16, a block cut by the cap
-// handed over as it stands — and then zero blocks up to B, so every block
-// of dst (B x 64 int32) is written. `rd.peek16(p)` gives the 16 stream
-// bits at bit p; the positions asked for never decrease.
-template <class Reader>
+// One lane of K1, K5 or K7: blocks of the schedule from bit `bitpos` of
+// the reader's stream with the DC predictors dc0[0..C) (null: zeros), until
+// nblk blocks or max_steps symbols — a block cut by the cap handed over as
+// it stands — and then zero blocks up to B, so every block of the lane is
+// written. The sink takes AC values (`put(cof, v)` of the block being
+// decoded), each finished block (`flush(blk, dc)`) and each block the lane
+// does not reach (`zero(blk)`). kSaturate: values saturated to int16 (K1,
+// K7), or not (K5: the DC predictor wraps mod 2^32 and is written as it
+// is; an AC magnitude has at most 15 bits, so the clamp never changes
+// one).
+// `rd.peek16(p)` gives the 16 stream bits at bit p; the positions asked
+// for never decrease.
+template <bool kSaturate, class Reader, class Sink>
 __device__ inline void decode_lane_lut(Reader& rd, const Tables& tb,
                                        const Lut& lut, const uint8_t* s_comp,
                                        const int32_t* comp_sched, int nblk,
                                        int B, int C, int max_steps,
                                        int bitpos, const int32_t* dc0,
-                                       BlockBuf& bb, int32_t* dst) {
+                                       Sink& sink) {
   int dc[kMaxComponents] = {0, 0, 0, 0};
   if (dc0 != nullptr)
     for (int c = 0; c < C; ++c) dc[c] = dc0[c];
@@ -216,18 +256,20 @@ __device__ inline void decode_lane_lut(Reader& rd, const Tables& tb,
                   run, cat, val);
     bitpos += used;
     if (!in_ac) {
-      dcw = min(max(add_dc(dc, comp, val), -32768), 32767);
+      dcw = add_dc(dc, comp, val);
+      if (kSaturate) dcw = min(max(dcw, -32768), 32767);
       in_ac = true;
       cof = 1;
     } else if (run == 0 && cat == 0) {  // EOB
-      bb.flush(dst + (size_t)blk * 64, dcw);
+      sink.flush(blk, dcw);
       ++blk;
       in_ac = false;
     } else {
       const int nc = cof + run;
-      if (nc < 64 && val) bb.put(nc, min(max(val, -32768), 32767));
+      if (nc < 64 && val)
+        sink.put(nc, kSaturate ? min(max(val, -32768), 32767) : val);
       if (nc + 1 >= 64) {
-        bb.flush(dst + (size_t)blk * 64, dcw);
+        sink.flush(blk, dcw);
         ++blk;
         in_ac = false;
       } else {
@@ -236,9 +278,8 @@ __device__ inline void decode_lane_lut(Reader& rd, const Tables& tb,
     }
   }
   // a lane stopped by its cap inside a block still hands that block over
-  if (in_ac) bb.flush(dst + (size_t)blk++ * 64, dcw);
-  for (blk = max(blk, 0); blk < B; ++blk)
-    store_zero_block(dst + (size_t)blk * 64);
+  if (in_ac) sink.flush(blk++, dcw);
+  for (blk = max(blk, 0); blk < B; ++blk) sink.zero(blk);
 }
 
 }  // namespace vct

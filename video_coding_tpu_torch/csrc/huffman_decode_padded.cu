@@ -6,100 +6,274 @@
 //   bytes) decodes into seg_blocks[s] blocks of (S, B, 64) int32 zigzag
 //   coefficients, DC prediction from zero, values NOT saturated, no
 //   start-state hooks, a step cap a lane. Past the row a peek reads what
-//   the reference's clamped, tile-padded window index reads (see
-//   WindowReader), not K1's zeros.
+//   the reference's clamped, tile-padded window index reads (PaddedReader),
+//   not K1's zeros.
 //
-// What bounds it on an H100: as K1, a serial automaton per lane and so
-//   latency-bound; the input is S·L bytes, the output is written sparsely
-//   into a zeroed tensor.
+// What bounds it on an H100: as K1, a serial automaton per lane, and with
+//   only 8,160 lanes for one 1080p frame at ri=1, the chain of the longest
+//   lane (~150 symbols of ~17 a block) sets the time, not bytes: the input
+//   is S·L bytes, the (S, B, 64) int32 output 12.5 MB.
 //
-// What the design does about it: adjacent lanes' rows are contiguous, so a
-//   CTA copies its rows into shared memory with coalesced 4-byte loads (row
-//   stride L + 4 bytes, so the lanes' byte reads spread over the banks) and
-//   every thread decodes from there through an 8-byte register window. Rows
-//   too long for shared memory, or not 4-byte aligned, are read from global
-//   memory directly. CTAs are one warp, so that the 8,160 lanes of a single
-//   1080p frame spread over all SMs. The reference's sublane-major layout,
-//   one-hot gathers and lane chunks are Mosaic's needs and are not kept.
+// What the design does about it: the lane loop is K1's (decode_lane_lut,
+//   with values left unsaturated): the two-level lookup table built by
+//   huffman_lut.cu ahead of the decode and staged into shared memory, a
+//   64-bit window of aligned big-endian words, zero blocks past the lane's
+//   end — so the output needs no zeroing pass. Rows start at s·L, which is
+//   4-byte aligned only when L is, so words are the aligned words of
+//   memory with the row's first bit offset into word 0 (K1's unaligned
+//   source), and from bit 8·(L - 3) on a peek reads the reference's
+//   clamped window instead. One 1080p frame is 255 CTAs of kWarps warps,
+//   kLanesPerWarp lanes a warp (a warp of fewer lanes takes fewer divergent
+//   paths a step), so nothing hides the steps of a lane's chain; what the
+//   design cuts is the rest. A CTA's rows, when they take at most
+//   kStageBytes, are copied into shared memory by cp.async, with the lookup
+//   table, all in flight at once, so a window refill is a shared load.
+//   Lanes of few blocks (a CTA's blocks within kLaneBufBytes) keep them in
+//   shared memory (LaneBlocks) and the CTA writes them out at the end with
+//   coalesced stores; longer lanes flush each block through K1's BlockBuf.
 
-#include "huffman_decode_common.cuh"
+#include "huffman_decode_lut.cuh"
 
 namespace {
 
 using namespace vct;
 
-constexpr int kThreads = 32;
-constexpr size_t kStageLimit = 96 * 1024;
+// A CTA is kWarps warps; lanes kLanesPerWarp of each warp decode a row
+// each (fewer than 32 lanes a warp take fewer divergent paths a step), all
+// of its threads stage and write out.
+constexpr int kWarps = 4;
+constexpr int kLanesPerWarp = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kLanes = kWarps * kLanesPerWarp;  // rows a CTA
+// the reference's window array is zero-padded to a multiple of this many
+// windows (one per byte)
+constexpr int kWindowTile = 128;
+// Rows of a CTA that take at most this many bytes are copied into shared
+// memory first: a lane refills its bit window every 32 bits, and from
+// global memory each refill would hold the lane for the load's latency
+constexpr int kStageBytes = 16384;
+// Lanes whose B blocks take at most this many bytes a CTA keep them in
+// shared memory until the CTA is done (LaneBlocks)
+constexpr int kLaneBufBytes = 49152;
 
-struct SparseSink {
-  int32_t* dst;  // the lane's (B, 64) slot of the zeroed output
-  int blk = 0;
-  __device__ void begin(int b) { blk = b; }
-  __device__ void put(int cof, int v) {
-    if (v) dst[blk * 64 + cof] = v;
+// Aligned 32-bit word m of the matrix as it lies in memory (little-endian),
+// m = 0 the word that holds seg[0]: it starts at seg[4·m - mis], where
+// mis = seg & 3; bytes outside the matrix read as zero.
+__device__ inline uint32_t matrix_word(const uint8_t* seg, long long total,
+                                       int mis, long long m) {
+  const long long a = 4 * m - mis;  // the word's first byte
+  if (a >= 0 && a + 3 < total)
+    return __ldg(reinterpret_cast<const uint32_t*>(seg + a));
+  uint32_t x = 0;
+  for (int i = 3; i >= 0; --i)
+    x = (x << 8) | (a + i >= 0 && a + i < total ? (uint32_t)seg[a + i] : 0u);
+  return x;
+}
+
+// Word j of a lane, big-endian, is matrix word w0 + j, w0 = (s·L + mis) / 4:
+// from the CTA's staged copy of matrix words [first, first + n_staged) when
+// there is one (a word past it never holds a bit that a peek below the
+// clamped tail uses, and reads as zero), else from global memory.
+struct PaddedWords {
+  const uint8_t* seg;
+  long long total;  // S·L
+  int mis;
+  long long w0;
+  const uint32_t* staged;
+  long long first;
+  int n_staged;
+  __device__ uint32_t word(int j) const {
+    if (staged != nullptr) {
+      const long long i = w0 + j - first;
+      return i < n_staged ? bswap32(staged[i]) : 0u;
+    }
+    return bswap32(matrix_word(seg, total, mis, w0 + j));
   }
-  __device__ void end(int) {}
 };
 
-__global__ void huffman_decode_padded_kernel(
-    const uint8_t* __restrict__ segbytes, int L, int NW, int NWp,
-    const int32_t* __restrict__ seg_blocks, int S,
+// peek16 of the reference's byte-granular windows: below bit 8·NW
+// (NW = L - 3 windows) the row's own bits; from there on window
+// min(p / 8, NWp - 1) of the array padded to NWp windows — zero when NW is
+// not a tile multiple, else the last real window (bytes L-4..L-1) again,
+// at offset p % 8.
+struct PaddedReader {
+  BitWindow<PaddedWords> win;
+  int off0;            // 8 · ((s·L + mis) & 3)
+  int tail_lim;        // 8 · NW
+  uint32_t tail_word;  // the last window, or 0
+  __device__ int peek16(int p) {
+    if (p >= tail_lim) return (int)((tail_word >> (16 - (p & 7))) & 0xFFFF);
+    return win.peek16(off0 + p);
+  }
+};
+
+// K5's block sink for short lanes: the lane's B blocks stay in shared
+// memory — AC values as int16 in a row of B·64 + 2 halves (so that the
+// lanes' rows start in different banks), position 0 unused; DC values as
+// int32 — zeroed before the decode; after it the CTA writes all its lanes'
+// blocks out at once with coalesced 16-byte stores. A finished block then
+// costs a lane one store, where a BlockBuf flush is sixteen.
+struct LaneBlocks {
+  int16_t* ac;
+  int32_t* dc;
+  int16_t* cur;  // the block being decoded
+  __device__ void put(int cof, int v) { cur[cof] = (int16_t)v; }
+  __device__ void flush(int blk, int d) {
+    dc[blk] = d;
+    cur = ac + (blk + 1) * 64;
+  }
+  __device__ void zero(int) {}
+};
+
+__host__ __device__ inline int lane_halves(int B) { return B * 64 + 2; }
+
+// shared-memory bytes of the blocks of a CTA: LaneBlocks (a multiple of
+// 16) or BlockBufs
+__host__ __device__ inline size_t sink_bytes(bool lane_buf, int B) {
+  return lane_buf ? (size_t)kLanes * (2 * lane_halves(B) + 4 * B)
+                  : (size_t)kLanes * kBufHalves * 2;
+}
+
+template <bool kLaneBuf>
+__global__ void __launch_bounds__(kThreads) huffman_decode_padded_kernel(
+    const uint8_t* __restrict__ segbytes, int S, int L,
+    const int32_t* __restrict__ seg_blocks,
     const int32_t* __restrict__ comp_sched, int B, int C,
     const int32_t* __restrict__ lo_g, const int32_t* __restrict__ hi_g,
     const int32_t* __restrict__ off_g, int T,
-    const int32_t* __restrict__ values_g, int V, int max_steps,
-    int stage_stride, int32_t* __restrict__ out) {
-  extern __shared__ int32_t smem[];
-  const Tables tb = stage_tables(smem, lo_g, hi_g, off_g, T, values_g, V);
-
-  const int lane0 = blockIdx.x * blockDim.x;
-  const int lane = lane0 + threadIdx.x;
-  const uint8_t* row = segbytes + (size_t)lane * L;
-  if (stage_stride) {
-    uint32_t* stage = reinterpret_cast<uint32_t*>(smem + table_ints(T, V));
-    const uint32_t* src =
-        reinterpret_cast<const uint32_t*>(segbytes + (size_t)lane0 * L);
-    const int wpr = L / 4;
-    const int n = min((int)blockDim.x, S - lane0) * wpr;
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      stage[(i / wpr) * (stage_stride / 4) + i % wpr] = src[i];
-    __syncthreads();
-    row = reinterpret_cast<const uint8_t*>(stage) +
-          (size_t)threadIdx.x * stage_stride;
+    const int32_t* __restrict__ values_g, int V,
+    const int16_t* __restrict__ lut_g, int max_steps, bool stage,
+    int32_t* __restrict__ out) {
+  extern __shared__ int4 smem4[];
+  __shared__ uint8_t s_comp[kSchedStage];
+  int32_t* smem = reinterpret_cast<int32_t*>(smem4);
+  char* bufs = reinterpret_cast<char*>(smem) + lut_smem_bytes(T, V);
+  const int mis = (int)(reinterpret_cast<uintptr_t>(segbytes) & 3);
+  const long long total = (long long)S * L;
+  const int lane0 = blockIdx.x * kLanes;
+  const int n_lanes = min(kLanes, S - lane0);
+  // the matrix words that hold the CTA's rows, copied as they lie in
+  // memory, all at once
+  const long long first = ((long long)lane0 * L + mis) >> 2;
+  int n_staged = 0;
+  uint32_t* staged = nullptr;
+  if (stage) {
+    const long long end = (long long)(lane0 + n_lanes) * L;
+    n_staged = (int)(((end - 1 + mis) >> 2) - first + 1);
+    staged = reinterpret_cast<uint32_t*>(bufs + sink_bytes(kLaneBuf, B));
+    for (int i = threadIdx.x; i < n_staged; i += kThreads) {
+      const long long a = 4 * (first + i) - mis;
+      if (a >= 0 && a + 3 < total)
+        copy_async4(staged + i, segbytes + a);
+      else
+        staged[i] = matrix_word(segbytes, total, mis, first + i);
+    }
   }
-  if (lane >= S) return;
-  WindowReader rd{row, L, 3, NW, NWp};
-  SparseSink sink{out + (size_t)lane * B * 64};
-  decode_lane_windows(rd, tb, comp_sched, min(seg_blocks[lane], B), C,
-                      max_steps, INT_MAX, sink);
+  int16_t* ac = reinterpret_cast<int16_t*>(bufs);
+  int32_t* dcs = reinterpret_cast<int32_t*>(ac + kLanes * lane_halves(B));
+  if (kLaneBuf) {
+    const int n = (int)(sink_bytes(true, B) / 16);
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      reinterpret_cast<int4*>(bufs)[i] = make_int4(0, 0, 0, 0);
+  }
+  Lut lut;
+  stage_sched(s_comp, comp_sched, B, C);
+  // ends in a barrier after every copy has landed, which publishes the
+  // staged rows and the zeros too
+  const Tables tb =
+      stage_tables_lut(smem, lo_g, hi_g, off_g, T, values_g, V, lut_g, lut);
+
+  const int t = threadIdx.x & 31;
+  const int slot = (threadIdx.x >> 5) * kLanesPerWarp + t;  // in the CTA
+  const int lane = lane0 + slot;
+  if (t < kLanesPerWarp && slot < n_lanes) {
+    const long long a0 = (long long)lane * L + mis;
+    const int NW = L - 3;
+    uint32_t tail_word = 0;
+    if (NW % kWindowTile == 0) {
+      const uint8_t* b = segbytes + (size_t)lane * L + NW - 1;
+      tail_word = ((uint32_t)b[0] << 24) | ((uint32_t)b[1] << 16) |
+                  ((uint32_t)b[2] << 8) | (uint32_t)b[3];
+    }
+    PaddedReader rd{
+        {PaddedWords{segbytes, total, mis, a0 >> 2, staged, first,
+                     n_staged}},
+        8 * (int)(a0 & 3), 8 * NW, tail_word};
+    const int nblk = min(seg_blocks[lane], B);
+    if (kLaneBuf) {
+      int16_t* mine = ac + slot * lane_halves(B);
+      LaneBlocks sink{mine, dcs + slot * B, mine};
+      decode_lane_lut<false>(rd, tb, lut, s_comp, comp_sched, nblk, B, C,
+                             max_steps, 0, nullptr, sink);
+    } else {
+      BlockBuf bb{reinterpret_cast<int16_t*>(bufs) + slot * kBufHalves};
+      bb.clear();
+      GlobalBlocks sink{bb, out + (size_t)lane * B * 64};
+      decode_lane_lut<false>(rd, tb, lut, s_comp, comp_sched, nblk, B, C,
+                             max_steps, 0, nullptr, sink);
+    }
+  }
+  if (!kLaneBuf) return;
+  __syncthreads();
+  // the CTA's lanes are one contiguous run of the output: lane by lane,
+  // 16 bytes a thread
+  int4* o = reinterpret_cast<int4*>(out + (size_t)lane0 * B * 64);
+  for (int l = 0; l < n_lanes; ++l) {
+    const int16_t* row = ac + l * lane_halves(B);
+#pragma unroll 4
+    for (int r = threadIdx.x; r < B * 16; r += kThreads) {
+      const uint32_t* a = reinterpret_cast<const uint32_t*>(row + 4 * r);
+      const uint32_t w0 = a[0], w1 = a[1];
+      const int x0 =
+          r & 15 ? (int)(int16_t)(w0 & 0xFFFF) : dcs[l * B + (r >> 4)];
+      o[l * B * 16 + r] =
+          make_int4(x0, (int)(int16_t)(w0 >> 16), (int)(int16_t)(w1 & 0xFFFF),
+                    (int)(int16_t)(w1 >> 16));
+    }
+  }
+}
+
+template <bool kLaneBuf>
+int launch(const uint8_t* segbytes, int S, int L, const int32_t* seg_blocks,
+           const int32_t* comp_sched, int B, int C, const int32_t* lo,
+           const int32_t* hi, const int32_t* offset, int T,
+           const int32_t* values, int V, const int16_t* lut, int max_steps,
+           bool stage, size_t smem, int32_t* out, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(huffman_decode_padded_kernel<kLaneBuf>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  }
+  huffman_decode_padded_kernel<kLaneBuf>
+      <<<(S + kLanes - 1) / kLanes, kThreads, smem, stream>>>(
+          segbytes, S, L, seg_blocks, comp_sched, B, C, lo, hi, offset, T,
+          values, V, lut, max_steps, stage, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// lut: lut_entries(T) int16, where the lookup table is built first. out
+// needs no initialisation.
 extern "C" int vct_k5_huffman_decode_padded(
     const uint8_t* segbytes, int S, int L, const int32_t* seg_blocks,
     const int32_t* comp_sched, int B, int C, const int32_t* lo,
     const int32_t* hi, const int32_t* offset, int T, const int32_t* values,
-    int V, int max_steps, int32_t* out, void* stream) {
+    int V, int16_t* lut, int max_steps, int32_t* out, void* stream) {
   if (S <= 0) return (int)cudaGetLastError();
-  const int NW = L - 3;
-  const int NWp = (NW + 127) / 128 * 128;
-  const int blocks = (S + kThreads - 1) / kThreads;
-  size_t smem = table_ints(T, V) * sizeof(int32_t);
-  int stage_stride = 0;
-  if (L % 4 == 0 && reinterpret_cast<uintptr_t>(segbytes) % 4 == 0 &&
-      smem + (size_t)kThreads * (L + 4) <= kStageLimit) {
-    stage_stride = L + 4;
-    smem += (size_t)kThreads * stage_stride;
-  }
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(huffman_decode_padded_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  }
-  huffman_decode_padded_kernel<<<blocks, kThreads, smem,
-                                 (cudaStream_t)stream>>>(
-      segbytes, L, NW, NWp, seg_blocks, S, comp_sched, B, C, lo, hi, offset,
-      T, values, V, max_steps, stage_stride, out);
-  return (int)cudaGetLastError();
+  const int err = vct_huffman_lut(lo, hi, offset, T, values, V, lut, stream);
+  if (err != 0) return err;
+  // a CTA's rows span at most kLanes·L + 6 bytes: that many words + 2
+  const long long stage_words = ((long long)kLanes * L + 6) / 4 + 2;
+  const bool stage = 4 * stage_words <= kStageBytes;
+  const bool lane_buf = sink_bytes(true, B) <= kLaneBufBytes;
+  const size_t smem = lut_smem_bytes(T, V) + sink_bytes(lane_buf, B) +
+                      (stage ? 4 * (size_t)stage_words : 0);
+  return lane_buf
+             ? launch<true>(segbytes, S, L, seg_blocks, comp_sched, B, C, lo,
+                            hi, offset, T, values, V, lut, max_steps, stage,
+                            smem, out, (cudaStream_t)stream)
+             : launch<false>(segbytes, S, L, seg_blocks, comp_sched, B, C,
+                             lo, hi, offset, T, values, V, lut, max_steps,
+                             stage, smem, out, (cudaStream_t)stream);
 }

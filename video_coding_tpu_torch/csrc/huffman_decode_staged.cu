@@ -142,17 +142,18 @@ __global__ void __launch_bounds__(kThreads) huffman_decode_staged_kernel(
   char* bufs = reinterpret_cast<char*>(smem) + lut_smem_bytes(T, V);
   BlockBuf bb{reinterpret_cast<int16_t*>(bufs) + threadIdx.x * kBufHalves};
   bb.clear();
+  GlobalBlocks sink{bb, out + (size_t)lane * B * 64};
   const int start = starts[lane];
   const int slack = start & 15;
   BitWindow<StagedWords> rd{StagedWords{
       flat, n_rows, start >> 4, lens[lane] + slack,
       reinterpret_cast<uint8_t*>(bufs) +
           (size_t)blockDim.x * kBufHalves * sizeof(int16_t)}};
-  decode_lane_lut(rd, tb, lut, s_comp, comp_sched, min(seg_blocks[lane], B),
-                  B, C, max_steps,
-                  8 * slack + (init_bitpos ? init_bitpos[lane] : 0),
-                  init_dc ? init_dc + (size_t)lane * C : nullptr, bb,
-                  out + (size_t)lane * B * 64);
+  decode_lane_lut<true>(rd, tb, lut, s_comp, comp_sched,
+                        min(seg_blocks[lane], B), B, C, max_steps,
+                        8 * slack + (init_bitpos ? init_bitpos[lane] : 0),
+                        init_dc ? init_dc + (size_t)lane * C : nullptr,
+                        sink);
   cp_async_wait<0>();  // no copy outlives its thread
 }
 

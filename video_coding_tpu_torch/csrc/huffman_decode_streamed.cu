@@ -94,8 +94,8 @@ struct RowWords {
   }
 };
 
-// peek16 of the reference's stride-16 windows (see huffman_decode_common's
-// WindowReader): below bit 16·NW the row's own bits, from there on the
+// peek16 of the reference's stride-16 windows (K5's PaddedReader with
+// 2-byte windows): below bit 16·NW the row's own bits, from there on the
 // last window's bits at offset bit % 16, or zero when the window array was
 // padded (tail_word = 0).
 struct RowReader {

@@ -1,5 +1,5 @@
-// The two-level lookup table of the Huffman decode kernels K1, K6 and K7,
-// built on the card from the range tables once per call (layout in
+// The two-level lookup table of the Huffman decode kernels K1, K5, K6 and
+// K7, built on the card from the range tables once per call (layout in
 // huffman_decode_lut.cuh; plain version: huffman_decode.decode_lut_plain).
 //
 // Pass 1, one thread a 16-bit window (T · 65,536 threads): match() of the
@@ -11,8 +11,9 @@
 //
 // Replaces nothing of the TPU kernels by itself: it stands in for the
 // range compare of their symbol loops (`lookup` in
-// video_coding_tpu/entropy/pallas_decode.py _symbol_loop_t and _kernel_bs),
-// which K1, K6 and K7 now run only past the level-2 blocks.
+// video_coding_tpu/entropy/pallas_decode.py _symbol_loop_t, _kernel and
+// _kernel_bs), which K1, K5, K6 and K7 now run only past the level-2
+// blocks.
 
 #include "huffman_decode_lut.cuh"
 

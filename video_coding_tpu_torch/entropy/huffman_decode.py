@@ -31,7 +31,7 @@ saturated, and where the symbol cap sits:
     the cap is 134 symbols a block (it never binds: a block ends within
     64 symbols).
 
-K1, K6 and K7 look symbols up in ``decode_lut``, a two-level table built
+K1, K5, K6 and K7 look symbols up in ``decode_lut``, a two-level table built
 from the range tables on every call (2^``LUT_BITS`` entries per table row,
 then ``LUT_POOL`` blocks for the prefixes of longer codes), and run the
 range match only where the blocks run out.
@@ -357,8 +357,8 @@ def _lut_buffer(T: int, dev) -> torch.Tensor:
 
 def decode_lut(lo: torch.Tensor, hi: torch.Tensor, offset: torch.Tensor,
                values: torch.Tensor) -> torch.Tensor:
-    """The lookup table of K1, K6 and K7 from the range tables: lo/hi/offset
-    int32 (T, 16), values int32 (V,) → int16 (T·2^LUT_BITS +
+    """The lookup table of K1, K5, K6 and K7 from the range tables:
+    lo/hi/offset int32 (T, 16), values int32 (V,) → int16 (T·2^LUT_BITS +
     LUT_POOL·2^(16 - LUT_BITS),), as ``decode_lut_plain``."""
     T = lo.shape[0]
     _check([("lo", lo, torch.int32, (T, 16)),
@@ -486,7 +486,8 @@ def decode_segments(segbytes: torch.Tensor, seg_blocks: torch.Tensor,
                     n_components: int) -> torch.Tensor:
     """K5: segbytes uint8 (S, L) destuffed zero-padded rows (>= 4 guard
     bytes), seg_blocks int32 (S,), comp_sched int32 (B,), range tables →
-    (S, B, 64) int32 zigzag coefficients, not saturated."""
+    (S, B, 64) int32 zigzag coefficients, not saturated, every block
+    written by the kernel (the output is not zeroed first)."""
     S, L = segbytes.shape[0], segbytes.shape[-1]
     B = blocks_per_segment
     C = n_components
@@ -496,13 +497,18 @@ def decode_segments(segbytes: torch.Tensor, seg_blocks: torch.Tensor,
         return decode_segments_plain(segbytes, seg_blocks, comp_sched, lo,
                                      hi, offset, values,
                                      blocks_per_segment=B, n_components=C)
-    out = torch.zeros((S, B, 64), dtype=torch.int32, device=segbytes.device)
+    if L >= 1 << 28:
+        raise ValueError("segbytes: rows must be shorter than 2^28 bytes")
+    dev = segbytes.device
+    lut = _lut_buffer(lo.shape[0], dev)     # built by the entry point
+    out = torch.empty((S, B, 64), dtype=torch.int32, device=dev)
     kernels.launch("vct_k5_huffman_decode_padded", segbytes.data_ptr(), S, L,
                    seg_blocks.data_ptr(), comp_sched.data_ptr(), B, C,
                    lo.data_ptr(), hi.data_ptr(), offset.data_ptr(),
                    lo.shape[0], values.data_ptr(), values.shape[0],
-                   max_steps(B), out.data_ptr())
+                   lut.data_ptr(), max_steps(B), out.data_ptr())
     decode_segments.launches += 1
+    decode_lut.launches += 1
     return out
 
 

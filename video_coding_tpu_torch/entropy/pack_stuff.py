@@ -9,9 +9,10 @@ each lane's unstuffed byte count →
 
 - out (S, m_out) uint8: per lane, for k = 0..K-1 the low c_len[k] bits of
   slot k appended MSB-first, every completed byte written at the lane's
-  cursor; after a 0xFF byte the cursor advances one more (the stuffed 0x00
-  is the untouched zero of the zero-initialised output); a byte whose
-  cursor is at or past m_out is dropped while the cursor goes on counting;
+  cursor; after a 0xFF byte the cursor advances one more over a stuffed
+  0x00; a byte whose cursor is at or past m_out is dropped while the
+  cursor goes on counting; every byte from the final cursor to m_out is
+  zero;
 - out_lens (S,) int32: the final cursor;
 - overflow: any(raw_bytes_len > m_raw) or any(out_lens > m_out).
 
@@ -104,7 +105,8 @@ def pack_stuff(c_hi: torch.Tensor, c_lo: torch.Tensor, c_len: torch.Tensor,
                                 m_raw=m_raw, m_out=m_out)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    out = torch.zeros((S, m_out), dtype=torch.uint8, device=dev)
+    # every byte of out is written by the kernel (the tail as zeros)
+    out = torch.empty((S, m_out), dtype=torch.uint8, device=dev)
     out_lens = torch.empty(S, dtype=torch.int32, device=dev)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
     kernels.launch("vct_k8_pack_stuff", c_hi.data_ptr(), c_lo.data_ptr(),

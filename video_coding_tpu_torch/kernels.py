@@ -1,5 +1,5 @@
 """Build and load the port's CUDA kernels (K1-K9 and the decode lookup
-table that K1, K6 and K7 share).
+table that K1, K5, K6 and K7 share).
 
 The sources in ``csrc/`` have a plain C interface. At first use they are
 compiled with ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per source, all
@@ -49,9 +49,9 @@ _SIGNATURES = {
     "vct_k4_huffman_encode": (_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P,
                               _P, _P),
     # segbytes, S, L, seg_blocks, comp_sched, B, C, lo, hi, offset, T,
-    # values, V, max_steps, out, stream
+    # values, V, lut, max_steps, out, stream
     "vct_k5_huffman_decode_padded": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
-                                     _I, _P, _I, _I, _P, _P),
+                                     _I, _P, _I, _P, _I, _P, _P),
     # segbytes, S, L, seg_blocks, comp_sched, B, C, lo, hi, offset, T,
     # values, V, lut, sub_bits, n_sub_max, scratch, stats, out, stream
     "vct_k6_huffman_decode_streamed": (_P, _I, _I, _P, _P, _I, _I, _P, _P,
