@@ -13,7 +13,14 @@
     E  16 Frames, q75, ri=8 (48 blocks a segment) through
        encode_device_batch: K3, symbol construction with K9, the packer K8;
     F  the ri=1 sources transcoded to ri=8: K1 → K2 → K3 → K9 → K8;
-  and the session's host-entropy route, encode(), on one frame.
+  and the session's host-entropy route, encode(), on one frame;
+- the decoder session's host-entropy half and the transcode's host route:
+    G  decode() by the host decoder (pure Python) with a dense or sparse
+       coefficient upload, then K2; entropy="tpu" (the padded matrix
+       decoded on the card: K1, K6 or K5 by stream shape, or K5 asked
+       for), decode_batch, decode_iter, resync, decode_jpeg;
+    H  transcode_batch with entropy_out="host": K1 → K2 → K3, the
+       download, the host coder.
 
     python3 chip_smoke.py
 
@@ -96,8 +103,31 @@ Phases (any failure ends the run with a nonzero exit):
                  across chunks, lanes that end mid-byte) at three budgets;
                  symbol construction, the gather packer and K4 on the same
                  coefficients timed for the breakdown;
- 13. a JSON line of per-kernel numbers;
- 14. a last JSON line {"ok": true, "device": {...}}.
+ 13. paths G, H — decode() of frame 0 (ri=1) with entropy="native" and
+                 coef_transfer "dense" and "sparse" (K2 once, no Huffman
+                 kernel; equal to decode_device() and to device='cpu';
+                 the host decoder's ms and the upload + K2 ms);
+                 entropy="tpu" with device_huffman="auto" on ri=1 (K1),
+                 ri=120 (K6) and ri=0 (K5, one lane) and "pallas" on ri=1
+                 (K5): the kernel and K2 once each, no plain loop, planes
+                 equal to decode_device(), the kernel and K2 held against
+                 their plain versions on the path's arguments (K5's one
+                 ri=0 lane against the host decoder's coefficients); "lut"
+                 and "range" (plain loops) timed once; decode_batch of the
+                 16 ri=1 frames (entropy="tpu", frames/s, median of 3) and
+                 of 2 (entropy="native"), decode_iter over 4, all equal to
+                 decode_device_batch; resync on three damaged copies of
+                 frame 0 (segment 100 set to 0xFF, RST marker 200 removed,
+                 the stream cut at 60%), each decoded once on the card and
+                 held against the CPU session's planes from the same
+                 coefficients and the damaged segments it must report; a
+                 strict decode() raising SegmentDecodeError; decode_jpeg of
+                 the whole file; transcode_batch with entropy_out="host"
+                 on 2 frames (K1, K2, K3, no K4; the device route's bytes;
+                 ms a frame) and transcode_iter over 4;
+ 14. a JSON line of per-kernel numbers (with each kernel's launches on the
+     own paths A-H);
+ 15. a last JSON line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the reference package. Needs one
 CUDA card; exits nonzero without one.
@@ -807,6 +837,324 @@ def decode_redesign_checks(k1, captured, dec) -> None:
         f"{int((level1 == k1.LUT_FALLBACK).sum())} to the range match)")
 
 
+# the plain Huffman loops a session on the card must never call (phase 13)
+PLAIN_LOOPS = ("decode_flat_plain", "decode_flat_staged_plain",
+               "decode_segments_plain", "decode_segments_streamed_plain",
+               "decode_segments_lut_plain")
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host-clock ms of fn() ended by a synchronize, after one
+    warm-up call (for calls that do host work around their launches)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def frames_equal(a, b) -> bool:
+    """Two decoded pictures (Frames or lists of Planes) are equal."""
+    pa = [a.y, a.u, a.v] if hasattr(a, "y") else a
+    pb = [b.y, b.u, b.v] if hasattr(b, "y") else b
+    return len(pa) == len(pb) and all(
+        x.data.shape == y.data.shape and (x.data == y.data).all()
+        for x, y in zip(pa, pb))
+
+
+def restuffed(segments: list, terminators: list) -> bytes:
+    """An entropy body from destuffed segments: 0xFF stuffed, joined with
+    RSTn (``terminators[i]`` is segment i's index; None drops the
+    marker), closed by EOI."""
+    out = bytearray()
+    for i, seg in enumerate(segments):
+        out += seg.replace(b"\xff", b"\xff\x00")
+        if i < len(segments) - 1 and terminators[i] is not None:
+            out += bytes((0xFF, 0xD0 + terminators[i]))
+    return bytes(out + b"\xff\xd9")
+
+
+def host_entropy_paths(sources, file0, trans, counted, compare, smi,
+                       path_launches) -> None:
+    """Phase 13: the decoder session's host-entropy half (path G) and the
+    transcode's host route (path H) on the phase 3 sources. Any
+    difference raises."""
+    from video_coding_tpu_torch.common.bitstream import BitReader
+    from video_coding_tpu_torch.entropy import huffman_decode as k1
+    from video_coding_tpu_torch.entropy import scan as hscan
+    from video_coding_tpu_torch.model.header import Header
+    from video_coding_tpu_torch.ops import datapath
+    from video_coding_tpu_torch.runtime import decode_jpeg
+    from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
+                                                       JpegTranscodeSession)
+
+    t_phase = time.perf_counter()
+    header, payloads = sources["ri=1"]
+    huffman = ("K1", "K5", "K6", "K7")
+    plain_calls = {}
+
+    def counted_no_plain(call, must_launch):
+        """counted(), with every plain Huffman loop of the module replaced
+        by one that counts its calls (a card session must call none)."""
+        saved = {n: getattr(k1, n) for n in PLAIN_LOOPS}
+        plain_calls.clear()
+        for n, fn in saved.items():
+            def tally(*a, n=n, fn=fn, **k):
+                plain_calls[n] = plain_calls.get(n, 0) + 1
+                return fn(*a, **k)
+            setattr(k1, n, tally)
+        try:
+            out, seen = counted(call, must_launch)
+        finally:
+            for n, fn in saved.items():
+                setattr(k1, n, fn)
+        if plain_calls:
+            raise RuntimeError(f"a plain loop ran on the card: {plain_calls}")
+        return out, seen
+
+    def keep_coefs(sess):
+        """Wrap sess.decode_entropy so its results and host ms are kept."""
+        kept, orig = [], sess.decode_entropy
+
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            c = orig(*a, **k)
+            kept.append((c, (time.perf_counter() - t0) * 1e3))
+            return c
+
+        sess.decode_entropy = run
+        return kept
+
+    refs = {tag: JpegDecoderSession(h).decode_device(p[0])
+            for tag, (h, p) in sources.items()}
+
+    # G, host decoder: decode() of frame 0 (ri=1), dense and sparse
+    coefs1 = None
+    for transfer in ("dense", "sparse"):
+        sess = JpegDecoderSession(header, entropy="native",
+                                  coef_transfer=transfer)
+        kept = keep_coefs(sess)
+        spy2 = Spy(datapath.decode_datapath)
+        datapath.decode_datapath = spy2
+        try:
+            t0 = time.perf_counter()
+            got, seen = counted_no_plain(lambda: sess.decode(payloads[0]),
+                                         ("K2",))
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            datapath.decode_datapath = spy2.fn
+        if seen["K2"] != 1 or any(seen[k] for k in huffman + ("LUT",)):
+            raise RuntimeError(f"path G host ({transfer}) must launch K2 once "
+                               f"and no Huffman decode kernel: {seen}")
+        path_launches[f"G host {transfer}"] = seen
+        coefs1, host_ms = kept[0]
+        if not frames_equal(got, refs["ri=1"]):
+            raise RuntimeError(f"decode() ({transfer}) differs from "
+                               "decode_device()")
+        cpu = JpegDecoderSession(header, device="cpu",
+                                 coef_transfer=transfer)
+        if not frames_equal(got, cpu._to_frame(
+                cpu.decode_planes_device(coefs1))):
+            raise RuntimeError(f"decode() ({transfer}) differs from the CPU "
+                               "session's")
+        a2, kw2 = spy2.args
+        compare("K2 on path G", datapath.decode_datapath(*a2, **kw2),
+                datapath.decode_datapath_plain(*a2, **kw2))
+        up_ms = wall_ms(lambda: sess.decode_planes_device(coefs1), 5)
+        log(f"path G host decode ri=1 frame 0, coef_transfer={transfer}: "
+            f"launches {seen}; the host decoder {host_ms:.1f} ms a frame "
+            f"(pure Python), upload + K2 + plane gather {up_ms:.3f} ms "
+            f"(median of 5), decode() {wall:.1f} ms wall; equal to "
+            f"decode_device() and to device='cpu' on {smi}")
+
+    # G, entropy="tpu": the strategy's kernel and K2 once each, no plain
+    # loop; K2 and the kernel held against their plain versions on the
+    # arguments the path gave them
+    runs = [("ri=1", "auto", "K1", "decode_flat"),
+            (f"ri={WIDTH // 16}", "auto", "K6", "decode_segments_streamed"),
+            ("ri=0", "auto", "K5", "decode_segments"),
+            ("ri=1", "pallas", "K5", "decode_segments")]
+    for tag, how, kname, wname in runs:
+        hdr_s, pay_s = sources[tag]
+        sess = JpegDecoderSession(hdr_s, entropy="tpu", device_huffman=how)
+        kept = keep_coefs(sess)
+        wrapper = getattr(k1, wname)
+        spy, spy2 = Spy(wrapper), Spy(datapath.decode_datapath)
+        setattr(k1, wname, spy)
+        datapath.decode_datapath = spy2
+        try:
+            got, seen = counted_no_plain(lambda: sess.decode(pay_s[0]),
+                                         (kname, "K2", "LUT"))
+        finally:
+            setattr(k1, wname, wrapper)
+            datapath.decode_datapath = spy2.fn
+        others = [k for k in huffman if k != kname and seen[k]]
+        if seen[kname] != 1 or seen["K2"] != 1 or others:
+            raise RuntimeError(f"path G tpu {how} {tag}: expected {kname} and "
+                               f"K2 once each: {seen}")
+        path_launches[f"G tpu {how} {tag}"] = seen
+        if not frames_equal(got, refs[tag]):
+            raise RuntimeError(f"path G tpu {how} {tag}: planes differ from "
+                               "decode_device()")
+        a, kw = spy.args
+        out = getattr(k1, wname)(*a, **kw)
+        if tag == "ri=0":
+            # one lane of the whole frame: the plain loop steps once a
+            # symbol of it, so the host decoder's coefficients stand in
+            t0 = time.perf_counter()
+            ref_c = hscan.decode_scan(hscan.destuff_segments(pay_s[0]),
+                                      sess.comp_idx, sess.blocks_per_segment,
+                                      sess.tables)
+            compare(f"{kname} on path G {tag} against the host decoder",
+                    out.view(-1, 64)[:sess.n_blocks].cpu(),
+                    torch.from_numpy(ref_c))
+            note = (f"{kname} equal to the host decoder's coefficients "
+                    f"({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+        else:
+            t0 = time.perf_counter()
+            compare(f"{kname} on path G {tag}", out,
+                    getattr(k1, wname + "_plain")(*a, **kw))
+            note = (f"{kname} equal to its plain version "
+                    f"({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+        a2, kw2 = spy2.args
+        compare("K2 on path G", datapath.decode_datapath(*a2, **kw2),
+                datapath.decode_datapath_plain(*a2, **kw2))
+        ms = wall_ms(lambda: sess.decode_entropy(pay_s[0]), 3)
+        log(f"path G entropy=tpu device_huffman={how} {tag}: {a[-6].shape[0]}"
+            f" lanes of {kw['blocks_per_segment']} blocks, launches {seen}; "
+            f"decode_entropy {ms:.3f} ms (destuff, pack, upload, decode, "
+            f"download; median of 3), first decode() {kept[0][1]:.1f} ms; "
+            f"{note}; K2 equal to its plain version; planes equal to "
+            f"decode_device() on {smi}")
+        del out
+    for how in ("lut", "range"):
+        sess = JpegDecoderSession(header, entropy="tpu", device_huffman=how)
+        t0 = time.perf_counter()
+        got = sess.decode(payloads[0])
+        ms = (time.perf_counter() - t0) * 1e3
+        if not frames_equal(got, refs["ri=1"]):
+            raise RuntimeError(f"device_huffman={how}: planes differ")
+        log(f"path G entropy=tpu device_huffman={how} ri=1 (a plain PyTorch "
+            f"loop on the card): decode() {ms:.1f} ms once; planes equal on "
+            f"{smi}")
+
+    # G, batch and iter
+    dev_sess = JpegDecoderSession(header)
+    dev_ref = [dev_sess._to_frame(p)
+               for p in dev_sess.decode_device_batch(payloads)]
+    tpu = JpegDecoderSession(header, entropy="tpu")
+    got = tpu.decode_batch(payloads)
+    if not all(frames_equal(g, r) for g, r in zip(got, dev_ref)):
+        raise RuntimeError("decode_batch (tpu) differs from "
+                           "decode_device_batch")
+
+    def window() -> float:
+        t = time.perf_counter()
+        tpu.decode_batch(payloads)
+        torch.cuda.synchronize()
+        return len(payloads) / (time.perf_counter() - t)
+
+    w = sorted(window() for _ in range(3))
+    log(f"decode_batch entropy=tpu {WIDTH}x{HEIGHT} q90 ri=1 "
+        f"F={len(payloads)}: median {w[1]:.2f} frames/s (windows "
+        f"{', '.join(f'{x:.2f}' for x in w)}); equal to decode_device_batch "
+        f"on {smi}")
+    t0 = time.perf_counter()
+    got = JpegDecoderSession(header, entropy="native").decode_batch(
+        payloads[:2])
+    if not all(frames_equal(g, r) for g, r in zip(got, dev_ref)):
+        raise RuntimeError("decode_batch (native) differs")
+    log(f"decode_batch entropy=native, 2 frames: equal, "
+        f"{time.perf_counter() - t0:.1f} s")
+    order = [3, 0, 2, 1]
+    got = list(tpu.decode_iter([payloads[i] for i in order], depth=2))
+    if len(got) != 4 or not all(frames_equal(g, dev_ref[i])
+                                for g, i in zip(got, order)):
+        raise RuntimeError("decode_iter: frames out of order or unequal")
+    log("decode_iter over 4 frames: in order and equal")
+
+    # G, resync on three damaged copies of frame 0 (ri=1): decoded once on
+    # the card; the CPU session's planes from the same coefficients
+    segs = hscan.destuff_segments(payloads[0])
+    S = len(segs)
+    k_bad, k_rst = min(100, S // 3), min(200, S // 2)   # 100, 200 at 1080p
+    term = [i & 7 for i in range(S - 1)]
+    dropped = list(term)
+    dropped[k_rst] = None
+    cut = payloads[0][:int(0.6 * len(payloads[0]))]
+    n_whole = len(hscan.destuff_segments(cut)) - 1
+    copies = {
+        f"segment {k_bad} set to 0xFF": (
+            restuffed(segs[:k_bad] + [b"\xff" * len(segs[k_bad])]
+                      + segs[k_bad + 1:], term), lambda d: d == [k_bad]),
+        f"RST marker {k_rst} removed": (restuffed(segs, dropped),
+                                        lambda d: d == []),
+        "cut at 60%": (cut, lambda d: d in (list(range(n_whole, S)),
+                                            list(range(n_whole + 1, S)))),
+    }
+    gpu = JpegDecoderSession(header)
+    cpu = JpegDecoderSession(header, device="cpu")
+    for name, (data, expect) in copies.items():
+        kept = keep_coefs(gpu)
+        t0 = time.perf_counter()
+        got = gpu.decode(data, resync=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        damaged = gpu.last_damaged_segments
+        if not expect(damaged):
+            raise RuntimeError(f"resync {name}: damaged segments {damaged}")
+        if not frames_equal(got, cpu._to_frame(
+                cpu.decode_planes_device(kept[0][0]))):
+            raise RuntimeError(f"resync {name}: planes differ from the CPU "
+                               "session's")
+        shown = damaged if len(damaged) <= 4 else \
+            f"{damaged[0]}..{damaged[-1]} ({len(damaged)})"
+        log(f"path G resync, {name}: damaged segments {shown}, "
+            f"{ms:.0f} ms; planes equal to device='cpu'")
+    try:
+        gpu.decode(copies[f"segment {k_bad} set to 0xFF"][0])
+    except hscan.SegmentDecodeError as e:
+        log(f"strict decode() of the damaged copy raised: {e}")
+    else:
+        raise RuntimeError("strict decode() of a damaged stream did not raise")
+    t0 = time.perf_counter()
+    whole = decode_jpeg(file0)
+    if not frames_equal(whole, refs["ri=1"]):
+        raise RuntimeError("decode_jpeg differs from decode()")
+    log(f"decode_jpeg of the whole ri=1 file: equal to decode(), "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # H: the transcode's host route
+    host = JpegTranscodeSession(header, quality=75, restart_interval=1,
+                                entropy_out="host")
+    t0 = time.perf_counter()
+    outs, seen = counted(lambda: host.transcode_batch(payloads[:2]),
+                         ("K1", "K2", "K3", "LUT"))
+    ms = (time.perf_counter() - t0) * 1e3 / 2
+    if seen["K4"]:
+        raise RuntimeError(f"path H launched K4: {seen}")
+    path_launches["H"] = seen
+    if outs != trans.transcode_batch(payloads[:2]):
+        raise RuntimeError("path H bytes differ from the device route's")
+    for o in outs:
+        if Header.decode(BitReader(o)).frame is None:
+            raise RuntimeError("path H output does not parse")
+    log(f"path H transcode_batch entropy_out=host, 2 frames q75 ri=1: "
+        f"launches {seen}; the device route's bytes; {ms:.1f} ms a frame "
+        f"(host coder, pure Python) on {smi}")
+    order = [1, 0, 3, 2]
+    got = list(host.transcode_iter([payloads[i] for i in order], depth=2))
+    ref = trans.transcode_batch(payloads[:4])
+    if got != [ref[i] for i in order]:
+        raise RuntimeError("transcode_iter differs from transcode_batch")
+    log(f"transcode_iter over 4 frames (host route): equal to "
+        f"transcode_batch; phase 13 took {time.perf_counter() - t_phase:.1f} "
+        f"s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1041,6 +1389,9 @@ def main() -> int:
     outs, seen = counted(lambda: trans.transcode_batch(payloads),
                          ("K1", "K2", "K3", "K4", "LUT"))
     launches = {k: seen[k] for k in ("K1", "K2", "K3", "K4", "LUT")}
+    # the launch counts of every own path's counted run, for the kernels
+    # line
+    path_launches = {}
     log(f"main path launches (one transcode_batch, F={FRAMES}): {launches}")
 
     def parses(o: bytes) -> None:
@@ -1182,6 +1533,7 @@ def main() -> int:
         finally:
             setattr(k1, wname, wrapper)
         launches[kname] = seen[kname]
+        path_launches[tag] = seen
         a, k = captured[kname] = spy.args
         # a[-6] is seg_blocks in both argument layouts
         log(f"path {tag}: {len(pay_p)} frame(s), {a[-6].shape[0]} lanes of "
@@ -1342,6 +1694,7 @@ def main() -> int:
         raise RuntimeError("path E must launch K3, K9 and K8 once each and "
                            f"K4 never: {seen}")
     launches.update(K8=seen["K8"], K9=seen["K9"])
+    path_launches["E"] = seen
     (a8, kw8), (a9, _kw9) = spy8.args, spy9.args
     S_e, K_e = a8[2].shape
     log(f"path E: {FRAMES} Frames q75 ri={RI_E}, {S_e} lanes of "
@@ -1413,6 +1766,7 @@ def main() -> int:
                            ("K1", "K2", "K3", "K9", "K8", "LUT"))
     if seen["K4"]:
         raise RuntimeError(f"path F launched K4: {seen}")
+    path_launches["F"] = seen
     log(f"path F: transcode_batch ri=1 -> ri={RI_E}, launches {seen}; "
         f"outputs {min(map(len, outs_f))}..{max(map(len, outs_f))} bytes")
     for o in outs_f:
@@ -1508,13 +1862,20 @@ def main() -> int:
         f"{ms_gather:.3f} ms; K4 on the same coefficients {ms_k4:.4f} ms, "
         f"bound {bms4:.4f} ms ({by4}) — {bms4 / ms_k4:.1%} of bound")
 
-    # 13. kernels line, 14. last line
+    # 13. paths G and H: the decoder session's host-entropy half and the
+    # transcode's host route
+    host_entropy_paths(sources, streams[0], trans, counted, compare, smi,
+                       path_launches)
+
+    # 14. kernels line, 15. last line
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name],
          "max_abs_err": err[name],
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-         "library_ms": lib_ms}
+         "library_ms": lib_ms,
+         "own_paths": {tag: seen[name] for tag, seen in path_launches.items()
+                       if seen[name]}}
         for name, src, replaces, ms, plain_ms, bms, by, lib_ms in timed]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

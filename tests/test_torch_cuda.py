@@ -1,6 +1,7 @@
 """K1-K9 CUDA kernels against their plain versions on the card, and the
-transcode, the decode routes and the encoder's packer routes on the card
-against the same sessions on the CPU. Marked
+transcode (device and host routes), the decode routes (device and
+host-entropy, resync included) and the encoder's packer routes on the
+card against the same sessions on the CPU. Marked
 ``cuda``: they skip without a GPU (run them on one with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``)."""
 
@@ -714,3 +715,84 @@ def test_huffman_encode_rejects_unaligned_views(gpu):
                         huffman_encode.encode_segments_plain(*args,
                                                              m_out=900)):
             assert torch.equal(a, b)
+
+
+def _frames_equal(a, b):
+    return all(np.array_equal(getattr(a, c).data, getattr(b, c).data)
+               for c in "yuv")
+
+
+_HUFFMAN = {"K1": huffman_decode.decode_flat,
+            "K5": huffman_decode.decode_segments,
+            "K6": huffman_decode.decode_segments_streamed,
+            "K7": huffman_decode.decode_flat_staged}
+
+
+@pytest.mark.parametrize("entropy,transfer,how,kernel", [
+    ("native", "dense", "auto", None), ("python", "sparse", "auto", None),
+    ("tpu", "auto", "auto", "K1"), ("tpu", "dense", "pallas", "K5"),
+    ("tpu", "sparse", "pallas_t", "K1"), ("tpu", "auto", "lut", None),
+    ("tpu", "auto", "range", None)])
+def test_host_entropy_routes_on_card_match_cpu(gpu, entropy, transfer, how,
+                                               kernel):
+    """decode() by entropy and coef_transfer on the card: K2 once, the
+    strategy's Huffman kernel once (none for the host decoder and the
+    plain loops), planes equal to the same session on the CPU and to
+    decode_device()."""
+    header, payloads = _streams(gpu)
+    kw = dict(entropy=entropy, coef_transfer=transfer, device_huffman=how)
+    sess = JpegDecoderSession(header, device=gpu, **kw)
+    before = {k: fn.launches for k, fn in _HUFFMAN.items()}
+    k2 = datapath.decode_datapath.launches
+    got = sess.decode(payloads[0])
+    delta = {k: fn.launches - before[k] for k, fn in _HUFFMAN.items()}
+    assert datapath.decode_datapath.launches - k2 == 1
+    assert delta == {k: int(k == kernel) for k in _HUFFMAN}
+    ref = JpegDecoderSession(header, device="cpu", **kw).decode(payloads[0])
+    assert _frames_equal(got, ref)
+    assert _frames_equal(got, JpegDecoderSession(header, device=gpu)
+                         .decode_device(payloads[0]))
+
+
+def test_host_entropy_batch_iter_and_resync_on_card_match_cpu(gpu):
+    header, payloads = _streams(gpu)
+    cpu = JpegDecoderSession(header, device="cpu")
+    refs = [cpu.decode(p) for p in payloads]
+    for entropy in ("native", "tpu"):
+        sess = JpegDecoderSession(header, device=gpu, entropy=entropy)
+        assert all(_frames_equal(g, r) for g, r in
+                   zip(sess.decode_batch(payloads), refs))
+        got = list(sess.decode_iter([payloads[2], payloads[0]]))
+        assert _frames_equal(got[0], refs[2])
+        assert _frames_equal(got[1], refs[0])
+    from video_coding_tpu_torch.entropy import scan as hscan
+    segs = hscan.destuff_segments(payloads[1])
+    segs[5] = b"\xff" * len(segs[5])
+    bad = hscan.join_segments([s.replace(b"\xff", b"\xff\x00")
+                               for s in segs]) + b"\xff\xd9"
+    for data in (bad, payloads[1][:len(payloads[1]) // 2]):
+        gpu_sess = JpegDecoderSession(header, device=gpu)
+        got = gpu_sess.decode(data, resync=True)
+        assert _frames_equal(got, cpu.decode(data, resync=True))
+        assert gpu_sess.last_damaged_segments == cpu.last_damaged_segments
+        assert gpu_sess.last_damaged_segments
+    with pytest.raises(hscan.SegmentDecodeError):
+        JpegDecoderSession(header, device=gpu).decode(bad)
+
+
+def test_transcode_host_route_on_card_matches_device_route(gpu):
+    header, payloads = _streams(gpu)
+    host = JpegTranscodeSession(header, quality=60, restart_interval=1,
+                                device=gpu, entropy_out="host")
+    k4 = huffman_encode.encode_segments.launches
+    k3 = datapath.encode_datapath.launches
+    got = host.transcode_batch(payloads)
+    assert huffman_encode.encode_segments.launches == k4
+    assert datapath.encode_datapath.launches == k3 + 1
+    dev = JpegTranscodeSession(header, quality=60, restart_interval=1,
+                               device=gpu)
+    assert got == dev.transcode_batch(payloads)
+    assert got == JpegTranscodeSession(
+        header, quality=60, restart_interval=1, device="cpu",
+        entropy_out="host").transcode_batch(payloads)
+    assert list(host.transcode_iter(payloads[::-1])) == got[::-1]

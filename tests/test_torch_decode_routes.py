@@ -93,7 +93,8 @@ def test_decode_device_matches_reference_session_and_golden(sub, w, h, q,
     dec.load_state(tstate.DecoderState.from_numpy(
         {"quant": jdec.quant, "comp_idx": jdec.comp_idx,
          "plane_geom": jdec.plane_geom,
-         "range_tables": tpu_decode.range_tables(jdec.tables)}, "cpu"))
+         "range_tables": tpu_decode.range_tables(jdec.tables),
+         "luts": tpu_decode.expand_luts(jdec.tables)}, "cpu"))
     got = dec.decode_device(payload)
     assert isinstance(ref, RefFrame) and isinstance(got, Frame)
     assert got.chroma_subsampling.name == ref.chroma_subsampling.name
@@ -238,9 +239,10 @@ def test_small_restart_free_stream_warns_once(caplog):
 
 def test_session_rejects_unknown_strategies():
     stream = _stream("420", 64, 48, 75, 1)
-    with pytest.raises(ValueError, match="not ported"):
-        _port(stream, device_huffman="lut")
-    with pytest.raises(ValueError):
+    # "lut" (the expanded-table loop) is a strategy now, unknown names
+    # still raise
+    assert _port(stream, device_huffman="lut")[0].device_huffman == "lut"
+    with pytest.raises(ValueError, match="device_huffman"):
         _port(stream, device_huffman="fastest")
     with pytest.raises(ValueError):
         _port(stream, decode_gather="tma")

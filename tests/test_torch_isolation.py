@@ -70,8 +70,28 @@ _CHILD = textwrap.dedent("""
                                                      for e in outs}
     streams.add(encode_jpeg(fr, 80, restart_interval=6, device="cpu"))
     assert len(streams) == 1
+    # the host-entropy half: host decoder, resync, the "lut" loop, sparse
+    # upload, decode_jpeg, the transcode's host route
+    from video_coding_tpu_torch.model import dct, decoder
+    from video_coding_tpu_torch.runtime import decode_jpeg
+    rs = JpegEncoderSession(Parameters.c420(128, 96, 80), 2,
+                            device="cpu").encode(fr)
+    bits = BitReader(rs)
+    rh = Header.decode(bits)
+    rp = rs[bits.bit_pos >> 3:]
+    host = JpegDecoderSession(rh, device="cpu", coef_transfer="sparse")
+    lutd = JpegDecoderSession(rh, device="cpu", entropy="tpu",
+                              device_huffman="lut")
+    got = [host.decode(rp), lutd.decode_batch([rp])[0],
+           decode_jpeg(rs, device="cpu"),
+           decode_jpeg(rs[:-40] + b"\\xff\\xd9", resync=True, device="cpu")]
+    assert all((g.y.data == got[0].y.data).all() for g in got[1:3])
+    assert got[3].y.data.shape == (96, 128)
+    assert (JpegTranscodeSession(rh, 60, 1, device="cpu",
+                                 entropy_out="host").transcode(rp)
+            == JpegTranscodeSession(rh, 60, 1, device="cpu").transcode(rp))
     for mod in (frame, plane, size, gather_pack, pack_stuff, symbols, lookup,
-                sparse):
+                sparse, dct, decoder):
         assert mod.__name__ in sys.modules
     leaked = sorted(m for m in sys.modules
                     if m == "video_coding_tpu"
@@ -105,7 +125,8 @@ def test_port_sources_name_neither_jax_nor_reference_package():
     names = {f.relative_to(root).as_posix() for f in files}
     for mod in ("ops/lookup.py", "ops/sparse.py", "entropy/pack_stuff.py",
                 "entropy/gather_pack.py", "entropy/symbols.py",
-                "common/frame.py", "common/plane.py", "common/size.py"):
+                "common/frame.py", "common/plane.py", "common/size.py",
+                "model/dct.py", "model/decoder.py"):
         assert f"video_coding_tpu_torch/{mod}" in names
     pat = re.compile(r"^\s*(from|import)\s+(jax|video_coding_tpu)(\.|\s|$)",
                      re.M)

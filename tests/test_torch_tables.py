@@ -24,7 +24,8 @@ from _torch_fixtures import ENCODERS, encode, header_payload, synth_frame
 def _reference_arrays(jdec, jenc):
     dec = {"quant": jdec.quant, "comp_idx": jdec.comp_idx,
            "plane_geom": jdec.plane_geom,
-           "range_tables": tpu_decode.range_tables(jdec.tables)}
+           "range_tables": tpu_decode.range_tables(jdec.tables),
+           "luts": tpu_decode.expand_luts(jdec.tables)}
     enc = {"quant": jenc.quant, "comp_idx": jenc.comp_idx,
            "perm": np.asarray(jenc._perm_dev), "gather": jenc.gather,
            "tables": tpu_encode.device_encoder_tables(jenc.tables),

@@ -1,8 +1,9 @@
 """The port's transcode main path on the CPU (plain K1-K4) as a whole:
 byte-identical to the reference model's decode + encode across
 subsamplings, qualities and restart intervals, and to the reference
-JAX session's fused transcode_batch (XLA forms of K1-K4 on the CPU).
-Tolerance: exact byte equality."""
+JAX session's fused transcode_batch (XLA forms of K1-K4 on the CPU); the
+host route (``entropy_out="host"``: K3, download, host coder) and
+``transcode_iter`` likewise. Tolerance: exact byte equality."""
 
 import pytest
 
@@ -19,11 +20,11 @@ from _torch_fixtures import encode, golden_transcode, header_payload, \
 SIZES = {"420": (200, 120), "422": (176, 96), "444": (120, 72)}
 
 
-def _session(stream: bytes, q: int, ri: int):
+def _session(stream: bytes, q: int, ri: int, **kw):
     bits = BitReader(stream)
     header = Header.decode(bits)
     return (JpegTranscodeSession(header, quality=q, restart_interval=ri,
-                                 device="cpu"),
+                                 device="cpu", **kw),
             stream[bits.bit_pos >> 3:])
 
 
@@ -86,3 +87,42 @@ def test_encode_device_batch_matches_golden_model(sub, w, h, ri):
     f = frames[0]
     assert enc.encode_planes_device((f.y.data, f.u.data, f.v.data)) == \
         outs[0]
+
+
+@pytest.mark.parametrize("sub,q,ri", [("420", 75, 1), ("422", 50, 2),
+                                      ("444", 75, 0)])
+def test_transcode_host_route_matches_device_route_and_reference(sub, q, ri):
+    """``entropy_out="host"`` (K3, the coefficient download, the host
+    coder) gives the device route's bytes, the JAX session's host route's
+    and the golden model's."""
+    w, h = SIZES[sub]
+    streams = [encode(sub, synth_frame(sub, w, h, seed), 85, 1)
+               for seed in (11, 12)]
+    payloads = [header_payload(s)[1] for s in streams]
+    jheader, _ = header_payload(streams[0])
+    ref = engine.JpegTranscodeSession(jheader, quality=q, restart_interval=ri,
+                                      entropy_out="host") \
+        .transcode_batch(payloads)
+    host, _ = _session(streams[0], q, ri, entropy_out="host")
+    assert host.entropy_out == "host"
+    got = host.transcode_batch(payloads)
+    assert got == ref
+    device, _ = _session(streams[0], q, ri)
+    assert device.entropy_out == "device"       # "auto" is "device"
+    assert device.transcode_batch(payloads) == got
+    assert got == [golden_transcode(sub, s, q, ri) for s in streams]
+    with pytest.raises(ValueError, match="entropy_out"):
+        _session(streams[0], q, ri, entropy_out="tpu")
+
+
+@pytest.mark.parametrize("entropy_out", ["host", "device"])
+def test_transcode_iter_matches_transcode_batch(entropy_out):
+    w, h = SIZES["420"]
+    streams = [encode("420", synth_frame("420", w, h, seed), 85, 1)
+               for seed in range(3)]
+    payloads = [header_payload(s)[1] for s in streams]
+    t, _ = _session(streams[0], 75, 2, entropy_out=entropy_out)
+    refs = t.transcode_batch(payloads)
+    order = [1, 0, 2, 2]
+    assert list(t.transcode_iter([payloads[i] for i in order], depth=2)) \
+        == [refs[i] for i in order]

@@ -1,10 +1,12 @@
-"""Canonical-range Huffman decode tables for the decode kernels, and the
-rules that route a stream to one of them.
+"""Huffman decode tables for the decode kernels, and the rules that route
+a stream to one of them.
 
 Canonical Huffman codes of one length occupy one contiguous range of the
 16-bit peek window, and the ranges of different lengths are disjoint, so
-a window matches exactly one length (or none). Row t is component c's DC
-table (t = c) or its AC table (t = C + c).
+a window matches exactly one length (or none): the range tables. Row t is
+component c's DC table (t = c) or its AC table (t = C + c). The expanded
+tables of ``expand_luts`` answer the same question with one load per
+16-bit window (the ``"lut"`` strategy's plain loop).
 """
 
 from __future__ import annotations
@@ -12,6 +14,38 @@ from __future__ import annotations
 import numpy as np
 
 from .tables import DecoderTables
+
+
+PEEK_BITS = 16
+
+
+def expand_luts(tables: DecoderTables) -> tuple[np.ndarray, np.ndarray]:
+    """Per-component flat LUTs widened to 2^16 entries: index = the next
+    16 bits of the stream; entry = (code_length << 16) | data. Returns
+    (dc (C, 65536), ac (C, 65536)) int32."""
+    def expand(maxbits, lut, off):
+        comps = []
+        for c in range(len(maxbits)):
+            part = lut[off[c]:off[c + 1]]
+            reps = 1 << (PEEK_BITS - int(maxbits[c]))
+            comps.append(np.repeat(part, reps))
+        return np.stack(comps)
+
+    dc = expand(tables.dc_maxbits, tables.dc_lut, tables.dc_off)
+    ac = expand(tables.ac_maxbits, tables.ac_lut, tables.ac_off)
+    return dc.astype(np.int32), ac.astype(np.int32)
+
+
+def pack_segments(segments: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    """Pad segments into an (S, L) uint8 matrix (+4 guard bytes, rows in
+    stream order, L not rounded) and return it with per-segment byte
+    lengths."""
+    lens = np.array([len(s) for s in segments], dtype=np.int32)
+    L = int(lens.max()) + 4
+    out = np.zeros((len(segments), L), dtype=np.uint8)
+    for i, s in enumerate(segments):
+        out[i, :len(s)] = np.frombuffer(s, dtype=np.uint8)
+    return out, lens
 
 
 def range_tables(tables: DecoderTables

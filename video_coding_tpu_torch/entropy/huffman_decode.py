@@ -38,6 +38,12 @@ range match only where the blocks run out.
 
 Every wrapper runs its plain version for CPU tensors and launches its
 CUDA kernel for CUDA tensors (or raises).
+
+``decode_segments_lut_plain`` is the reference's flat-table loop
+(``decode_segments_device``) in plain PyTorch, on any device: the padded
+matrix with unpadded windows, one load from the tables expanded to every
+16-bit window a symbol, values not saturated. The decoder session runs it
+only when ``device_huffman="lut"`` is asked for.
 """
 
 from __future__ import annotations
@@ -143,16 +149,24 @@ def _match_plain(w16, lo_t, hi_t, off_t, values):
 def _symbol_loop_plain(peek16, seg_blocks, comp_sched, lo, hi, offset,
                        values, *, blocks_per_segment: int, n_components: int,
                        saturate: bool, total_cap, block_cap,
-                       init_bitpos=None, init_dc=None) -> torch.Tensor:
-    """The symbol loop of all four kernels, vectorized over lanes."""
+                       init_bitpos=None, init_dc=None,
+                       lookup=None) -> torch.Tensor:
+    """The symbol loop of all four kernels, vectorized over lanes. With
+    ``lookup`` (a callable (table row t, window w16) → (code length,
+    data), int64), symbols come from it instead of the range tables,
+    which may then be None."""
     dev = seg_blocks.device
     S = seg_blocks.shape[0]
     B = blocks_per_segment
     C = n_components
     nblk = seg_blocks.to(torch.int64).clamp(max=B)
     sched = comp_sched.to(torch.int64)
-    lo, hi, off = (x.to(torch.int64) for x in (lo, hi, offset))
-    values = values.to(torch.int64)
+    if lookup is None:
+        lo, hi, off = (x.to(torch.int64) for x in (lo, hi, offset))
+        values = values.to(torch.int64)
+
+        def lookup(t, w16):
+            return _match_plain(w16, lo[t], hi[t], off[t], values)
     lane = torch.arange(S, device=dev, dtype=torch.int64)
     zero = torch.zeros(S, device=dev, dtype=torch.int64)
 
@@ -178,7 +192,7 @@ def _symbol_loop_plain(peek16, seg_blocks, comp_sched, lo, hi, offset,
         comp = sched[blk.clamp(0, B - 1)].clamp(0, C - 1)
         t = comp + torch.where(in_ac, C, 0)
         w16 = peek16(bitpos)
-        code_len, data = _match_plain(w16, lo[t], hi[t], off[t], values)
+        code_len, data = lookup(t, w16)
         run = torch.where(in_ac, (data >> 4) & 0xF, 0)
         cat = torch.where(in_ac, data & 0xF, data).clamp(max=16)
         code = peek16(bitpos + code_len) >> (16 - cat.clamp(min=1))
@@ -271,6 +285,35 @@ def decode_segments_streamed_plain(segbytes, seg_blocks, comp_sched, lo, hi,
         offset, values, blocks_per_segment=blocks_per_segment,
         n_components=n_components, saturate=False, total_cap=None,
         block_cap=BLOCK_STEPS)
+
+
+def lut_steps(blocks_per_segment: int) -> int:
+    """Per-lane symbol cap of the ``"lut"`` strategy: the reference loop's
+    iteration cap times its four symbols per iteration."""
+    return 4 * ((blocks_per_segment * 65 + 64) // 4 + 2)
+
+
+def decode_segments_lut_plain(segbytes, seg_blocks, comp_sched, luts, *,
+                              blocks_per_segment: int,
+                              n_components: int) -> torch.Tensor:
+    """The ``"lut"`` strategy, a plain PyTorch loop on any device (the
+    reference's ``decode_segments_device``): the padded (S, L) matrix
+    read through byte-granular 32-bit windows (clamped, no tile padding),
+    symbols looked up in the expanded tables ``luts`` (2C, 65536) int32
+    (rows [0, C) DC, [C, 2C) AC; entry (code_length << 16) | data),
+    values not saturated → (S, B, 64) int32."""
+    luts = luts.to(torch.int64)
+
+    def lookup(t, w16):
+        entry = luts[t, w16]
+        return entry >> 16, entry & 0xFFFF
+
+    return _symbol_loop_plain(
+        _window_peek(segbytes, 1, 1), seg_blocks, comp_sched, None, None,
+        None, None, blocks_per_segment=blocks_per_segment,
+        n_components=n_components, saturate=False,
+        total_cap=lut_steps(blocks_per_segment), block_cap=None,
+        lookup=lookup)
 
 
 def decode_lut_plain(lo, hi, offset, values) -> torch.Tensor:

@@ -1,0 +1,372 @@
+"""What the decoder session's host paths take from the golden decoder:
+the magnitude decode, the destuffing segment walk, the restart-segment
+alignment that resync is built on, the one-block Huffman decode, and the
+multi-scan (non-interleaved) decoder in numpy.
+
+Restart markers are honoured: the entropy stream is split into segments at
+RSTn boundaries and DC predictors reset per segment. The full-frame
+interleaved decode runs in the sessions (``runtime/engine.py``), which
+take their geometry from ``model.header.DecoderGeometry``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..common.bitstream import BitReader
+from ..common.frame import Frame
+from ..common.plane import Plane
+from . import marker_codes, markers
+from .dct import chen_inverse_8x8
+from .header import (DecodeError, Header, _find_component, _find_huffman_lut,
+                     _find_quant_table, _round_up)
+from .huffman import Lut
+from .zigzag import INVERSE as ZIGZAG_INVERSE
+
+
+def mag(cat: int, code: int) -> int:
+    """Magnitude (sign-extension) decode of a size-``cat`` value."""
+    if cat == 0:
+        return 0
+    if code & (1 << (cat - 1)):
+        return code
+    return (code | (-1 << cat)) + 1
+
+
+def extract_entropy_segments_span(
+        bits: BitReader) -> tuple[list[bytes], list[int], int]:
+    """De-stuff the entropy-coded data, splitting at RSTn markers.
+
+    0xFF00 → 0xFF; RST0-7 ends the current segment and starts the next;
+    0xFFFF is a fill byte; any other marker terminates the scan. Also
+    returns the RSTn modulo-8 index of each segment terminator (len =
+    len(segments) - 1), the hook for re-aligning segments after marker
+    loss (resync), and the byte offset of the terminating marker's 0xFF
+    (== len(buf) when the scan runs to the end), so multi-scan decoding
+    can resume the marker loop there."""
+    buf = bits.buffer
+    pos = bits.bit_pos >> 3
+    segments: list[bytes] = []
+    marker_indices: list[int] = []
+    out = bytearray()
+    n = len(buf)
+    end = n
+    while True:
+        nxt = buf.find(b"\xff", pos)
+        if nxt == -1:
+            out.extend(buf[pos:])
+            break
+        out.extend(buf[pos:nxt])
+        marker = buf[nxt + 1] if nxt + 1 < n else 0xD9
+        if marker == 0x00:
+            out.append(0xFF)
+            pos = nxt + 2
+        elif marker_codes.is_rst(marker):
+            segments.append(bytes(out))
+            marker_indices.append(marker & 7)
+            out = bytearray()
+            pos = nxt + 2
+        elif marker == 0xFF:
+            # fill bytes before a marker are legal; keep scanning
+            pos = nxt + 1
+        else:
+            end = nxt
+            break
+    segments.append(bytes(out))
+    return segments, marker_indices, end
+
+
+def extract_entropy_segments_with_markers(
+        bits: BitReader) -> tuple[list[bytes], list[int]]:
+    segments, marker_indices, _end = extract_entropy_segments_span(bits)
+    return segments, marker_indices
+
+
+def extract_entropy_segments(bits: BitReader) -> list[bytes]:
+    return extract_entropy_segments_span(bits)[0]
+
+
+def plan_segment_alignment(marker_indices: list[int], n_received: int,
+                           expected: int) -> tuple[list, list[int]]:
+    """Assign received restart segments to expected segment slots using
+    the RSTn modulo-8 marker indices (segment s is terminated by RST(s%8)).
+
+    A destroyed RSTn merges two received segments: its terminator index
+    jumps by k, and the segment is decoded as a run of k+1 slots (its
+    payload bytes are intact), so later segments stay aligned. A jump
+    whose next terminator matches the single-slot continuation is a
+    corrupted index byte, not a merge.
+
+    Returns ``(items, uncovered)``: items are ``(slot0, n_slots, j)`` —
+    received segment j holds slots [slot0, slot0+n_slots) — and uncovered
+    lists slots no received segment claims (to be concealed)."""
+    items = []
+    p = 0
+    for j in range(n_received):
+        if p >= expected:
+            break  # extra trailing segments: ignore
+        m = marker_indices[j] if j < len(marker_indices) else None
+        if m is None or m == p % 8:
+            items.append((p, 1, j))
+            p += 1
+            continue
+        k = (m - p) % 8
+        nxt = marker_indices[j + 1] if j + 1 < len(marker_indices) else None
+        if nxt is not None and nxt == (p + 1) % 8:
+            items.append((p, 1, j))
+            p += 1
+        elif p + k < expected:
+            # k markers lost: segment j carries slots p..p+k back to back
+            items.append((p, k + 1, j))
+            p += k + 1
+        else:
+            # index jump past the scan end: unreliable, best-effort single
+            items.append((p, 1, j))
+            p += 1
+    slots = set()
+    for slot0, n_slots, _j in items:
+        slots.update(range(slot0, slot0 + n_slots))
+    uncovered = [s for s in range(expected) if s not in slots]
+    return items, uncovered
+
+
+def huffman_decode_block(bits: BitReader, dc_tab: Lut, ac_tab: Lut,
+                         coefs: np.ndarray) -> None:
+    """One 8x8 block of Huffman + magnitude decode into zigzag-order
+    ``coefs``. Exhausting the reader (a read that starts past the end) is
+    a DecodeError."""
+    try:
+        _huffman_decode_block_inner(bits, dc_tab, ac_tab, coefs)
+    except DecodeError:
+        raise
+    except ValueError as e:
+        raise DecodeError(f"entropy data exhausted: {e}") from e
+
+
+def _huffman_decode_block_inner(bits: BitReader, dc_tab: Lut, ac_tab: Lut,
+                                coefs: np.ndarray) -> None:
+    length, data = dc_tab.lookup(bits.show(dc_tab.max_bits))
+    if length == 0:
+        raise DecodeError("Can't find dc code")
+    bits.advance(length)
+    coefs[0] = mag(data, bits.get(data) if data else 0)
+    cof_cnt = 1
+    ac_max = ac_tab.max_bits
+    while cof_cnt < 64:
+        length, data = ac_tab.lookup(bits.show(ac_max))
+        if length == 0:
+            raise DecodeError("Can't find ac code")
+        bits.advance(length)
+        run, size = (data >> 4) & 0xF, data & 0xF
+        value = mag(size, bits.get(size) if size else 0)
+        if value == 0 and run == 0:
+            break  # EOB
+        cof_cnt += run
+        if cof_cnt >= 64:
+            raise DecodeError(
+                f"coefficient index out of range: {cof_cnt}")
+        coefs[cof_cnt] = value
+        cof_cnt += 1
+
+
+class MultiScanDecoder:
+    """Baseline decoder for multi-scan streams — non-interleaved (one
+    component per SOS) or mixed — on the host in numpy.
+
+    Per T.81: each frame component appears in exactly one scan; a scan
+    with Ns>1 is interleaved in MCU order over the frame grid, a scan
+    with Ns=1 rasters over ceil(xi/8) × ceil(yi/8) blocks of that
+    component alone (A.2.2, with xi = ceil(X·Hi/Hmax)); DRI applies per
+    scan with the restart interval counted in that scan's MCUs, and
+    tables may be (re)defined between scans."""
+
+    def __init__(self, header: Header, bits: BitReader):
+        frame = header.frame
+        if frame is None or header.scan is None:
+            raise DecodeError("missing start of frame or start of scan")
+        self.header = header
+        self.bits = bits
+        self.max_h = max(c.horizontal_sampling_factor
+                         for c in frame.components)
+        self.max_v = max(c.vertical_sampling_factor
+                         for c in frame.components)
+        self.rounded_w = _round_up(frame.width, self.max_h * 8)
+        self.rounded_h = _round_up(frame.height, self.max_v * 8)
+        self.planes: dict[int, Plane] = {}
+        self.actual_dims: dict[int, tuple[int, int]] = {}
+        for comp in frame.components:
+            dw = self.rounded_w * comp.horizontal_sampling_factor // self.max_h
+            dh = self.rounded_h * comp.vertical_sampling_factor // self.max_v
+            # T.81 A.1.1: xi = ceil(X·Hi/Hmax)
+            aw = -(-frame.width * comp.horizontal_sampling_factor
+                   // self.max_h)
+            ah = -(-frame.height * comp.vertical_sampling_factor
+                   // self.max_v)
+            self.planes[comp.identifier] = Plane(dw, dh)
+            self.actual_dims[comp.identifier] = (aw, ah)
+        self.decoded_components: list[int] = []
+
+    def _scan_schedule(self, scan: markers.Sos
+                       ) -> tuple[list[tuple[int, int, int]], int]:
+        """Coded-order [(identifier, x, y)] plus blocks per MCU."""
+        frame = self.header.frame
+        if len(scan.scan_components) > 1:
+            comps = [_find_component(sc, frame)
+                     for sc in scan.scan_components]
+            mcus_w = self.rounded_w // (8 * self.max_h)
+            mcus_h = self.rounded_h // (8 * self.max_v)
+            sched = []
+            for my in range(mcus_h):
+                for mx in range(mcus_w):
+                    for comp in comps:
+                        hs = comp.horizontal_sampling_factor
+                        vs = comp.vertical_sampling_factor
+                        for v in range(vs):
+                            for h in range(hs):
+                                sched.append((comp.identifier,
+                                              (mx * hs + h) * 8,
+                                              (my * vs + v) * 8))
+            return sched, sum(c.horizontal_sampling_factor
+                              * c.vertical_sampling_factor for c in comps)
+        comp = _find_component(scan.scan_components[0], frame)
+        aw, ah = self.actual_dims[comp.identifier]
+        bw, bh = -(-aw // 8), -(-ah // 8)
+        sched = [(comp.identifier, bx * 8, by * 8)
+                 for by in range(bh) for bx in range(bw)]
+        return sched, 1
+
+    def _decode_scan(self, scan_idx: int = 0,
+                     resync: bool = False) -> None:
+        header = self.header
+        scan = header.scan
+        sched, mcu_blocks = self._scan_schedule(scan)
+        tabs: dict[int, tuple] = {}
+        for sc in scan.scan_components:
+            comp = _find_component(sc, header.frame)
+            tabs[sc.selector] = (
+                _find_quant_table(header.quant_tables,
+                                  comp.quantization_table_identifier),
+                _find_huffman_lut(header.huffman_tables, 0,
+                                  sc.dc_coef_selector, ac=False),
+                _find_huffman_lut(header.huffman_tables, 1,
+                                  sc.ac_coef_selector, ac=True),
+            )
+            self.decoded_components.append(sc.selector)
+        segments, marks, end = extract_entropy_segments_span(self.bits)
+        self.bits.bit_pos = end * 8  # resume the marker loop here
+        ri = (header.restart_interval.restart_interval
+              if header.restart_interval else 0)
+        bps = ri * mcu_blocks if ri else len(sched)
+        n_segments = -(-len(sched) // bps)
+        coefs = np.zeros((len(sched), 64), dtype=np.int32)
+
+        def decode_slot(rdr, slot, bit_limit=None):
+            """Decode one slot's blocks. Returns None, or the index of the
+            failing block (zeroed; earlier blocks are valid). With
+            ``bit_limit`` (resync), consuming past the segment's real bits
+            means zero-fill garbage, an error."""
+            first = slot * bps
+            count = min(bps, len(sched) - first)
+            dc_preds = {k: 0 for k in tabs}
+            for i in range(first, first + count):
+                ident = sched[i][0]
+                row = coefs[i]
+                try:
+                    huffman_decode_block(rdr, tabs[ident][1],
+                                         tabs[ident][2], row)
+                    if bit_limit is not None and rdr.bit_pos > bit_limit:
+                        raise DecodeError("segment data exhausted")
+                except DecodeError:
+                    row[:] = 0
+                    return i
+                dc_preds[ident] += int(row[0])
+                row[0] = dc_preds[ident]
+            return None
+
+        if not resync:
+            for slot in range(n_segments):
+                if slot >= len(segments):
+                    raise DecodeError(f"missing restart segment {slot}")
+                bad = decode_slot(BitReader(segments[slot]), slot)
+                if bad is not None:
+                    raise DecodeError(
+                        f"entropy decode failed at block {bad}")
+        else:
+            # realign by RSTn index, conceal damaged runs, per scan
+            items, uncovered = plan_segment_alignment(
+                marks, len(segments), n_segments)
+            damaged = set(uncovered)
+            for slot0, n_slots, j in items:
+                seg = segments[j]
+                rdr = BitReader(seg)
+                for t in range(n_slots):
+                    slot = slot0 + t
+                    if slot * bps >= len(sched):
+                        break
+                    if t:
+                        rdr.align_to_byte()
+                    bad = decode_slot(rdr, slot, bit_limit=8 * len(seg))
+                    if bad is not None:
+                        run_end = min((slot0 + n_slots) * bps, len(sched))
+                        coefs[bad:run_end] = 0
+                        damaged.update(
+                            s for s in range(slot, slot0 + n_slots)
+                            if s * bps < len(sched))
+                        break
+            self.damaged_segments.extend(
+                (scan_idx, s) for s in sorted(damaged))
+        # dequant (12-bit coefficient width) → dezigzag → IDCT → recon
+        qarr = np.stack([tabs[ident][0] for ident, _x, _y in sched])
+        dequant_zz = coefs.astype(np.int64) * qarr
+        np.clip(dequant_zz, -2048, 2047, out=dequant_zz)
+        dequant = np.zeros_like(dequant_zz)
+        dequant[:, ZIGZAG_INVERSE] = dequant_zz
+        idct = chen_inverse_8x8(dequant.reshape(-1, 8, 8))
+        recon = (np.clip(idct, -128, 127) + 128).astype(np.uint8)
+        for i, (ident, x, y) in enumerate(sched):
+            self.planes[ident].data[y:y + 8, x:x + 8] = recon[i]
+
+    def decode(self, resync: bool = False) -> None:
+        """With ``resync=True``, damaged restart segments are concealed
+        per scan (``self.damaged_segments`` lists (scan, segment) pairs),
+        inter-scan header damage stops cleanly, and components whose scan
+        never arrived fill mid-gray (``self.missing_components``)."""
+        self.damaged_segments: list[tuple[int, int]] = []
+        scan_idx = 0
+        while True:
+            self._decode_scan(scan_idx, resync=resync)
+            try:
+                more = self.header.decode_next_scan(self.bits)
+            except DecodeError:
+                if not resync:
+                    raise
+                more = False
+            if not more:
+                break
+            scan_idx += 1
+        missing = [c.identifier for c in self.header.frame.components
+                   if c.identifier not in self.decoded_components]
+        if missing:
+            if not resync:
+                raise DecodeError(f"components never scanned: {missing}")
+            for ident in missing:  # conceal never-scanned planes mid-gray
+                self.planes[ident].data[:] = 128
+            self.missing_components = missing
+
+    def get_planes(self) -> list[Plane]:
+        out = []
+        for comp in self.header.frame.components:
+            p = self.planes[comp.identifier]
+            aw, ah = self.actual_dims[comp.identifier]
+            if (p.width, p.height) != (aw, ah):
+                cropped = Plane(aw, ah)
+                p.blit_available(cropped)
+                p = cropped
+            out.append(p)
+        return out
+
+    def get_yuv_frame(self) -> Frame:
+        planes = self.get_planes()
+        if len(planes) != 3:
+            raise DecodeError("YUV frame needs 3 components")
+        return Frame.of_planes(planes[0], planes[1], planes[2])

@@ -69,6 +69,42 @@ class Header:
             else:
                 raise DecodeError(f"unsupported marker code 0x{code:02x}")
 
+    def decode_next_scan(self, bits) -> bool:
+        """Resume the marker loop after a scan's entropy data (``bits``
+        positioned at the terminating marker's 0xFF): table segments
+        update this header, the next SOS replaces ``self.scan`` and
+        returns True, EOI returns False. The hook for non-interleaved
+        (multi-scan) streams."""
+        try:
+            while True:
+                bits.align_to_byte()
+                while bits.get(8) != 0xFF:
+                    pass
+                code = bits.get(8)
+                if code == 0xFF:  # fill byte
+                    bits.advance(-8)
+                    continue
+                if code == marker_codes.EOI:
+                    return False
+                if code == marker_codes.SOS:
+                    self.scan = markers.Sos.decode(bits)
+                    return True
+                if code == marker_codes.DQT:
+                    self.quant_tables.extend(markers.Dqt.decode_segment(bits))
+                elif code == marker_codes.DHT:
+                    self.huffman_tables.extend(
+                        markers.Dht.decode_segment(bits))
+                elif code == marker_codes.DRI:
+                    self.restart_interval = markers.Dri.decode(bits)
+                elif marker_codes.is_app(code) or code == marker_codes.COM:
+                    length = bits.show(16)
+                    bits.advance(length * 8)
+                else:
+                    raise DecodeError(
+                        f"unsupported marker code 0x{code:02x} between scans")
+        except ValueError as e:
+            raise DecodeError(f"truncated stream between scans: {e}") from e
+
 
 def _round_up(v: int, m: int) -> int:
     return (v + m - 1) // m * m

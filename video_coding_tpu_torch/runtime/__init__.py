@@ -1,7 +1,9 @@
 """Decoder, encoder and transcode sessions."""
 
 from .engine import (JpegDecoderSession, JpegEncoderSession,
-                     JpegTranscodeSession, encode_jpeg, resolve_device)
+                     JpegTranscodeSession, decode_jpeg, encode_jpeg,
+                     resolve_device)
 
 __all__ = ["JpegDecoderSession", "JpegEncoderSession",
-           "JpegTranscodeSession", "encode_jpeg", "resolve_device"]
+           "JpegTranscodeSession", "decode_jpeg", "encode_jpeg",
+           "resolve_device"]

@@ -11,9 +11,13 @@
           the gather packer by ``device_pack``) → wire assembly; the host
           joins header + body + EOI.
 
-The encoder session also has the host-entropy route: K3 on the device, a
-dense or sparse coefficient download, then the host coder (pure Python)
-or the gather packer per frame.
+The decoder session also has the host-entropy route: the host Huffman
+decoder (pure Python; with resync, error concealment by restart segment)
+or the padded-matrix decode on the device, then a dense or sparse
+coefficient upload, K2 and the plane gather. The encoder session has its
+counterpart: K3 on the device, a dense or sparse coefficient download,
+then the host coder (pure Python) or the gather packer per frame; the
+transcode session can end in it (``entropy_out="host"``).
 
 Sessions run on ``cuda`` unless the caller passes a device (the tests pass
 ``device="cpu"``, which runs every kernel's plain PyTorch version). With
@@ -29,21 +33,22 @@ import os
 import numpy as np
 import torch
 
-from ..common.bitstream import BitWriter
+from ..common.bitstream import BitReader, BitWriter
 from ..common.frame import ChromaSubsampling, Frame
 from ..common.plane import Plane
 from ..entropy.assemble import assemble_frames
 from ..entropy import gather_pack, huffman_decode, pack_stuff
-from ..entropy.decode_tables import (auto_strategy, flat_words_route,
-                                     range_tables)
+from ..entropy.decode_tables import (auto_strategy, expand_luts,
+                                     flat_words_route, range_tables)
 from ..entropy.huffman_encode import (device_encoder_tables, encode_segments,
                                       m_out_for)
 from ..entropy import scan as entropy_scan
 from ..entropy.scan import (_chunked, _destuff_parts, _pipelined_map,
-                            index_scan, pack_lanes_sorted)
+                            destuff_flat, index_scan, pack_lanes_sorted)
 from ..entropy.symbols import prev_same_component
 from ..entropy.tables import pack_decoder_tables, pack_encoder_tables
 from ..model import marker_codes
+from ..model.decoder import MultiScanDecoder
 from ..model.header import (DecodeError, DecoderGeometry, EncoderGeometry,
                             Header, Parameters)
 from ..ops import datapath, sparse
@@ -102,9 +107,11 @@ class JpegDecoderSession:
     ``device_huffman`` picks the Huffman decode strategy: ``"auto"``
     (by stream shape: K1 for many short segments, K6 for long ones, K5
     otherwise — never a plain version on the card), ``"pallas_t"`` (K1),
-    ``"pallas"`` (K5) or ``"range"`` (the plain PyTorch loop on the
-    padded lane matrix, for an explicit selection only). All are
-    bit-identical on valid streams. ``decode_gather`` says how K1's
+    ``"pallas"`` (K5), or the plain PyTorch loops on the padded lane
+    matrix, for an explicit selection only: ``"range"`` (range-table
+    match) and ``"lut"`` (one load from the tables expanded to every
+    16-bit window). All are bit-identical on valid streams.
+    ``decode_gather`` says how K1's
     lanes reach the kernel from the flat buffer: ``"gather"`` (K1 reads
     global memory) or ``"dma"`` (K7 stages each lane's rows in shared
     memory itself); the default reads the environment variable
@@ -116,20 +123,38 @@ class JpegDecoderSession:
     and DC predictors every ``_index_stride()`` blocks and every virtual
     segment becomes a K1 lane with that start state. Smaller restart-free
     frames run as one serial lane (``device_entropy_parallel`` is False
-    and the first such call logs a warning)."""
+    and the first such call logs a warning).
 
-    STRATEGIES = ("auto", "pallas", "pallas_t", "range")
+    ``decode``, ``decode_batch`` and ``decode_iter`` take the host-entropy
+    route: ``decode_entropy`` gives (n_blocks, 64) coefficients on the
+    host by ``entropy`` — ``"python"`` (the host decoder, pure Python:
+    seconds for a 1080p frame), ``"native"`` (the same host decoder: the
+    port has no C++ engine, and does what the reference does when its
+    library is absent) or ``"tpu"`` (the padded lane matrix decoded on the
+    session's device by ``device_huffman``, so ``"auto"`` runs K1, K6 or
+    K5) — and ``decode_planes_device`` uploads them by ``coef_transfer``:
+    ``"dense"`` (int32), ``"sparse"`` (occupancy bitmask + packed
+    nonzeros) or ``"auto"`` (sparse on a GPU), then runs K2 and the plane
+    gather. ``resync=True`` decodes on the host with error concealment by
+    restart segment, whatever ``entropy`` says, and leaves the concealed
+    segments in ``last_damaged_segments``."""
+
+    STRATEGIES = ("auto", "pallas", "pallas_t", "range", "lut")
+    ENTROPY = ("native", "python", "tpu")
+    COEF_TRANSFER = ("auto", "dense", "sparse")
 
     def __init__(self, header: Header, device=None,
                  device_huffman: str = "auto",
-                 decode_gather: str | None = None):
+                 decode_gather: str | None = None, entropy: str = "native",
+                 coef_transfer: str = "auto"):
         self.device = resolve_device(device)
-        if device_huffman == "lut":
-            raise ValueError("device_huffman='lut' (the 2^16-entry table "
-                             "decode) is not ported yet")
-        if device_huffman not in self.STRATEGIES:
-            raise ValueError(f"device_huffman must be one of "
-                             f"{self.STRATEGIES}, got {device_huffman!r}")
+        for name, value, allowed in (
+                ("device_huffman", device_huffman, self.STRATEGIES),
+                ("entropy", entropy, self.ENTROPY),
+                ("coef_transfer", coef_transfer, self.COEF_TRANSFER)):
+            if value not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got "
+                                 f"{value!r}")
         if decode_gather is None:
             decode_gather = ("dma" if os.environ.get("VCT_DECODE_GATHER")
                              == "dma" else "gather")
@@ -137,6 +162,11 @@ class JpegDecoderSession:
             raise ValueError("decode_gather must be 'gather' or 'dma'")
         self.device_huffman = device_huffman
         self.decode_gather = decode_gather
+        self.entropy = entropy
+        self.coef_transfer = coef_transfer
+        self._sparse = coef_transfer == "sparse" or (
+            coef_transfer == "auto" and self.device.type == "cuda")
+        self.last_damaged_segments: list[int] = []
         self.header = header
         geom = DecoderGeometry(header)
         self.components = geom.components
@@ -172,7 +202,8 @@ class JpegDecoderSession:
         """The arrays this session computes with (see state.py)."""
         return {"quant": self.quant, "comp_idx": self.comp_idx,
                 "plane_geom": self.plane_geom,
-                "range_tables": range_tables(self.tables)}
+                "range_tables": range_tables(self.tables),
+                "luts": expand_luts(self.tables)}
 
     def load_state(self, state: DecoderState) -> None:
         """Compute with ``state`` from here on (e.g. state built from
@@ -310,13 +341,17 @@ class JpegDecoderSession:
         S, L = segbytes.shape
         B = self.blocks_per_segment
         how = self.device_huffman
+        st = self.state
+        if how == "lut":
+            return huffman_decode.decode_segments_lut_plain(
+                segbytes, seg_blocks, self._comp_sched, st.luts,
+                blocks_per_segment=B, n_components=len(self.components))
         if how == "auto":
             how = auto_strategy(S, L, B)
         fn = {"pallas_t": huffman_decode.decode_segments_lanes,
               "streamed": huffman_decode.decode_segments_streamed,
               "pallas": huffman_decode.decode_segments,
               "range": huffman_decode.decode_segments_plain}[how]
-        st = self.state
         return fn(segbytes, seg_blocks, self._comp_sched, st.lo, st.hi,
                   st.offset, st.values, blocks_per_segment=B,
                   n_components=len(self.components))
@@ -506,6 +541,102 @@ class JpegDecoderSession:
         if len(planes) == 3:
             return Frame.of_planes(*planes)
         return planes
+
+    # -- host-entropy route -------------------------------------------------
+    def decode_entropy(self, entropy_data: bytes,
+                       resync: bool = False) -> np.ndarray:
+        """Raw (stuffed) entropy-coded bytes → (n_blocks, 64) int32 zigzag
+        coefficients on the host, by ``self.entropy``.
+
+        With ``resync=True`` the host decoder conceals corrupt or
+        truncated data per restart segment (damaged segments zeroed from
+        the failing block; see ``entropy.scan.decode_scan_resync``)
+        instead of raising, whatever ``entropy`` says (the device decoders
+        have no error strobes); ``self.last_damaged_segments`` reports
+        what was concealed."""
+        if resync:
+            segments, marks = entropy_scan.destuff_segments_with_markers(
+                entropy_data)
+            coefs, damaged = entropy_scan.decode_scan_resync(
+                segments, self.comp_idx, self.blocks_per_segment,
+                self.tables, marker_indices=marks)
+            self.last_damaged_segments = damaged
+            return coefs
+        self.last_damaged_segments = []
+        if self.entropy == "tpu":
+            return self._decode_entropy_device(entropy_data)
+        # "native" is the reference's C++ decoder; here it is the host one
+        return entropy_scan.decode_scan(
+            entropy_scan.destuff_segments(entropy_data), self.comp_idx,
+            self.blocks_per_segment, self.tables)
+
+    def _decode_entropy_device(self, entropy_data: bytes) -> np.ndarray:
+        """``entropy="tpu"``: the frame's segments as a length-sorted
+        padded (S, L) matrix, decoded on the device by the session's
+        strategy, brought back to stream order and downloaded."""
+        self._check_device_entropy_route()
+        flat, lens64 = destuff_flat(entropy_data)
+        lanebuf, _lens, segb, inv_perm, _L = self._padded_lane_inputs(
+            flat, lens64, self._expected_seg_blocks(len(lens64)))
+        dev = self.device
+        coefs = self._decode_segments(_upload(lanebuf, dev),
+                                      _upload(segb, dev))
+        coefs = coefs[_upload(inv_perm, dev).to(torch.int64)]
+        return coefs.view(-1, 64)[:self.n_blocks].cpu().numpy()
+
+    @staticmethod
+    def _pack_upload(coefs: np.ndarray):
+        """Host sparse pack, the value buffer zero-padded to a power-of-two
+        bucket as the reference uploads it: (mask, values)."""
+        mask, values, nnz = sparse.pack_host(coefs)
+        cap = max(256, 1 << (max(nnz, 1) - 1).bit_length())
+        return mask, np.pad(values, (0, cap - nnz))
+
+    def _decode_coefs_host(self, coefs: np.ndarray, f: int):
+        """(f·n_blocks, 64) host coefficients of f frames → tuple of (f, H,
+        W) uint8 plane stacks on the device: the dense or sparse upload,
+        then K2 and the plane gather (one lane a frame)."""
+        dev = self.device
+        if self._sparse:
+            mask, values = self._pack_upload(coefs)
+            pool = sparse.unpack_device(_upload(mask, dev),
+                                        _upload(values, dev), coefs.shape[0])
+        else:
+            pool = _upload(coefs.astype(np.int32, copy=False), dev)
+        return self._decode_tail_pool(
+            pool, torch.arange(f, device=dev), f, self.n_blocks)
+
+    def decode_planes_device(self, coefs: np.ndarray):
+        """(n_blocks, 64) coefficients → tuple of decoded (MCU-padded)
+        planes on the device. With sparse transfer only the occupancy
+        bitmask and the packed nonzeros go up (the device scatters them
+        back to dense before K2)."""
+        return tuple(p[0] for p in self._decode_coefs_host(coefs, 1))
+
+    def decode(self, entropy_data: bytes,
+               resync: bool = False) -> Frame | list[Plane]:
+        """One frame through the host-entropy route → a ``Frame`` of
+        cropped planes (three components), else a list of ``Plane``s."""
+        coefs = self.decode_entropy(entropy_data, resync=resync)
+        return self._to_frame(self.decode_planes_device(coefs))
+
+    def decode_batch(self, entropy_list: list[bytes]) -> list:
+        """Decode many same-geometry frames: the entropy decode of each on
+        worker threads, then one upload and one K2 launch for all."""
+        import concurrent.futures
+
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(8, len(entropy_list))) as pool:
+            coefs = list(pool.map(self.decode_entropy, entropy_list))
+        f = len(entropy_list)
+        planes = self._decode_coefs_host(np.concatenate(coefs), f)
+        return [self._to_frame([p[i] for p in planes]) for i in range(f)]
+
+    def decode_iter(self, entropy_iter, depth: int = 2):
+        """Pipelined streaming decode: an ordered generator of frames with
+        up to ``depth`` in flight — frame i+1's entropy decode overlaps
+        frame i's upload, K2 and plane download."""
+        return _pipelined_map(self.decode, entropy_iter, depth)
 
 
 class JpegEncoderSession:
@@ -885,16 +1016,21 @@ class JpegEncoderSession:
     def encode(self, frame) -> bytes:
         return self.encode_planes(self.load_planes(frame))
 
+    def _entropy_frames(self, q_batch: np.ndarray) -> list[bytes]:
+        """(f, n_blocks, 64) host coefficients → f JPEG streams, the
+        entropy coder of ``self.entropy`` per frame on worker threads."""
+        import concurrent.futures
+
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(8, len(q_batch))) as pool:
+            return list(pool.map(self._entropy_frame, q_batch))
+
     def encode_batch(self, frames: list) -> list[bytes]:
         """Encode many frames: one batched device call for the block
         numerics and one download, then the entropy coder per frame on
         worker threads."""
-        import concurrent.futures
-
-        q_batch = self._quantize_stacked(self._stack_frames(frames))
-        with concurrent.futures.ThreadPoolExecutor(
-                max_workers=min(8, len(frames))) as pool:
-            return list(pool.map(self._entropy_frame, q_batch))
+        return self._entropy_frames(
+            self._quantize_stacked(self._stack_frames(frames)))
 
     def encode_iter(self, frames, depth: int = 2):
         """Pipelined streaming encode: an ordered generator of JPEG byte
@@ -924,11 +1060,27 @@ class JpegTranscodeSession:
     leaving the device: Huffman decode → K2 → plane assembly → pad clean →
     K3 → K4 → wire assembly. Host traffic per frame = two compressed
     bitstreams. Restart-free input takes the decoder's indexed route, so a
-    camera JPEG comes out restart-segmented."""
+    camera JPEG comes out restart-segmented.
+
+    ``entropy_out`` says where the output's entropy is coded:
+    ``"device"`` (as above), ``"host"`` (after K3 the quantized
+    coefficients come down, sparse on a GPU, and the encoder session's
+    host coder, pure Python, codes each frame) or ``"auto"``, which is
+    ``"device"`` on every device. (The reference picks ``"host"`` off its
+    accelerator only because its threaded C++ coder beats its simulated
+    device packer on a CPU; the port has no C++ coder.) Both give the same
+    bytes."""
+
+    ENTROPY_OUT = ("auto", "device", "host")
 
     def __init__(self, header: Header, quality: int = 75,
-                 restart_interval: int = 0, device=None):
+                 restart_interval: int = 0, device=None,
+                 entropy_out: str = "auto"):
         self.device = resolve_device(device)
+        if entropy_out not in self.ENTROPY_OUT:
+            raise ValueError(f"entropy_out must be one of {self.ENTROPY_OUT}"
+                             f", got {entropy_out!r}")
+        self.entropy_out = "device" if entropy_out == "auto" else entropy_out
         frame_hdr = header.frame
         if frame_hdr is None or len(frame_hdr.components) != 3:
             raise DecodeError("transcode supports 3-component scans")
@@ -961,10 +1113,21 @@ class JpegTranscodeSession:
         return self.transcode_batch([entropy_data])[0]
 
     def transcode_batch(self, entropy_list: list[bytes]) -> list[bytes]:
-        """F frames' entropy bytes → F JPEG streams, one device pass."""
+        """F frames' entropy bytes → F JPEG streams: one device pass, then
+        (``entropy_out="host"``) one download and the host coder per
+        frame."""
         cleaned = self._clean_planes(
             self.decoder.decode_device_batch_stacked(entropy_list))
-        return self.encoder._encode_stacked(cleaned)
+        enc = self.encoder
+        if self.entropy_out == "host":
+            return enc._entropy_frames(enc._quantize_stacked(cleaned))
+        return enc._encode_stacked(cleaned)
+
+    def transcode_iter(self, entropy_iter, depth: int = 2):
+        """Pipelined streaming transcode: an ordered generator of JPEG
+        byte strings with up to ``depth`` frames in flight — frame i's
+        host work overlaps frame i+1's device work."""
+        return _pipelined_map(self.transcode, entropy_iter, depth)
 
     def transcode_batch_iter(self, entropy_iter, batch: int = 8,
                              depth: int = 2):
@@ -975,6 +1138,24 @@ class JpegTranscodeSession:
         for outs in _pipelined_map(self.transcode_batch,
                                    _chunked(entropy_iter, batch), depth):
             yield from outs
+
+
+def decode_jpeg(data: bytes, resync: bool = False, device=None):
+    """One-shot decode of a whole JPEG byte stream through
+    ``JpegDecoderSession.decode`` (the host-entropy route). Multi-scan
+    (non-interleaved) streams go to the model's ``MultiScanDecoder``, on
+    the host in numpy: the sessions assume the one interleaved scan every
+    camera and encoder emits."""
+    bits = BitReader(data)
+    header = Header.decode(bits)
+    if (header.frame is not None and header.scan is not None
+            and len(header.scan.scan_components)
+            < len(header.frame.components)):
+        mdec = MultiScanDecoder(header, bits)
+        mdec.decode(resync=resync)
+        return mdec.get_yuv_frame()
+    session = JpegDecoderSession(header, device=device)
+    return session.decode(data[bits.bit_pos >> 3:], resync=resync)
 
 
 def encode_jpeg(frame: Frame, quality: int = 75,

@@ -12,7 +12,9 @@ Decoder arrays:
   comp_idx (n_blocks,) int32 component of every block;
   plane_geom [(idx (n_c,) int32, nby, nbx)] per component: schedule rows
     of the component's blocks in raster order;
-  range_tables (lo, hi, offset, values) for K1.
+  range_tables (lo, hi, offset, values) for K1, K5, K6 and K7;
+  luts (dc (C, 65536), ac (C, 65536)) int32, the tables expanded to every
+    16-bit window, for the "lut" strategy's plain loop.
 Encoder arrays:
   quant, comp_idx as above;
   perm (n_blocks,) int32: stream block i is block perm[i] of the
@@ -48,6 +50,7 @@ class DecoderState:
     hi: torch.Tensor
     offset: torch.Tensor
     values: torch.Tensor
+    luts: torch.Tensor           # (2C, 65536): DC rows, then AC rows
 
     @classmethod
     def from_numpy(cls, arrays: dict, device) -> "DecoderState":
@@ -58,7 +61,8 @@ class DecoderState:
             plane_idx=[(_t(idx, device, torch.int64), int(nby), int(nbx))
                        for idx, nby, nbx in arrays["plane_geom"]],
             lo=_t(lo, device), hi=_t(hi, device),
-            offset=_t(offset, device), values=_t(values, device))
+            offset=_t(offset, device), values=_t(values, device),
+            luts=_t(np.concatenate(arrays["luts"]), device))
 
     def to_numpy(self) -> dict:
         lo, hi, off, val = (x.cpu().numpy() for x in (self.lo, self.hi,
@@ -70,6 +74,8 @@ class DecoderState:
             "plane_geom": [(idx.cpu().numpy().astype(np.int32), nby, nbx)
                            for idx, nby, nbx in self.plane_idx],
             "range_tables": (lo, hi, off, val),
+            "luts": tuple(self.luts.cpu().numpy().reshape(
+                2, -1, self.luts.shape[1])),
         }
 
 
