@@ -20,7 +20,11 @@
        decoded on the card: K1, K6 or K5 by stream shape, or K5 asked
        for), decode_batch, decode_iter, resync, decode_jpeg;
     H  transcode_batch with entropy_out="host": K1 → K2 → K3, the
-       download, the host coder.
+       download, the host coder;
+- the decode-for-training path:
+    I  decode_device_rgb(_batch): K1 → K2 → the RGB tail (chroma
+       upsampling and color conversion in plain torch) on the card, and
+       JpegRgbDataset and the mjpeg helpers over it.
 
     python3 chip_smoke.py
 
@@ -125,9 +129,26 @@ Phases (any failure ends the run with a nonzero exit):
                  the whole file; transcode_batch with entropy_out="host"
                  on 2 frames (K1, K2, K3, no K4; the device route's bytes;
                  ms a frame) and transcode_iter over 4;
- 14. a JSON line of per-kernel numbers (with each kernel's launches on the
-     own paths A-H);
- 15. a last JSON line {"ok": true, "device": {...}}.
+ 14. path I    — decode_device_rgb_batch of the 16 ri=1 frames with the
+                 counts reset before and read after (K1, K2 and the LUT
+                 once each, no plain loop); (16, 1080, 1920, 3) uint8 on
+                 the card, frames 0-1 equal to device='cpu', equal to
+                 yuv444_to_rgb of the upsampled planes of
+                 decode_device_batch_stacked; frames/s and MPix/s (median
+                 of 3 windows); one dispatch under the profiler split into
+                 K1, K2, LUT, copies and torch ops; the RGB tail alone
+                 timed beside its bound; decode_device_rgb of frame 0; one
+                 1080p frame each of 4:2:2, 4:4:0, 4:4:4 and a 1919x1079
+                 4:2:0 frame encoded on the card, decode_device_rgb equal
+                 to device='cpu'; JpegRgbDataset over the MJPEG stream of
+                 the 16 sources (batch_size=8, prefetch=2: two batches,
+                 equal to the batch decode, frames/s; batch_size=6 with
+                 drop_remainder: two; sharding raises); mjpeg.encode_stream
+                 of 2 frames (the sources' bytes) and decode_stream of them
+                 through an entropy="tpu" session (equal to decode_device);
+ 15. a JSON line of per-kernel numbers (with each kernel's launches on the
+     own paths A-I);
+ 16. a last JSON line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the reference package. Needs one
 CUDA card; exits nonzero without one.
@@ -843,6 +864,29 @@ PLAIN_LOOPS = ("decode_flat_plain", "decode_flat_staged_plain",
                "decode_segments_lut_plain")
 
 
+def counted_without_plain_loops(counted, call, must_launch):
+    """counted(), with every plain Huffman loop of the decode module
+    replaced by one that counts its calls (a card session must call
+    none)."""
+    from video_coding_tpu_torch.entropy import huffman_decode as k1
+
+    plain_calls = {}
+    saved = {n: getattr(k1, n) for n in PLAIN_LOOPS}
+    for n, fn in saved.items():
+        def tally(*a, n=n, fn=fn, **k):
+            plain_calls[n] = plain_calls.get(n, 0) + 1
+            return fn(*a, **k)
+        setattr(k1, n, tally)
+    try:
+        out, seen = counted(call, must_launch)
+    finally:
+        for n, fn in saved.items():
+            setattr(k1, n, fn)
+    if plain_calls:
+        raise RuntimeError(f"a plain loop ran on the card: {plain_calls}")
+    return out, seen
+
+
 def wall_ms(fn, reps: int) -> float:
     """Median host-clock ms of fn() ended by a synchronize, after one
     warm-up call (for calls that do host work around their launches)."""
@@ -895,26 +939,6 @@ def host_entropy_paths(sources, file0, trans, counted, compare, smi,
     t_phase = time.perf_counter()
     header, payloads = sources["ri=1"]
     huffman = ("K1", "K5", "K6", "K7")
-    plain_calls = {}
-
-    def counted_no_plain(call, must_launch):
-        """counted(), with every plain Huffman loop of the module replaced
-        by one that counts its calls (a card session must call none)."""
-        saved = {n: getattr(k1, n) for n in PLAIN_LOOPS}
-        plain_calls.clear()
-        for n, fn in saved.items():
-            def tally(*a, n=n, fn=fn, **k):
-                plain_calls[n] = plain_calls.get(n, 0) + 1
-                return fn(*a, **k)
-            setattr(k1, n, tally)
-        try:
-            out, seen = counted(call, must_launch)
-        finally:
-            for n, fn in saved.items():
-                setattr(k1, n, fn)
-        if plain_calls:
-            raise RuntimeError(f"a plain loop ran on the card: {plain_calls}")
-        return out, seen
 
     def keep_coefs(sess):
         """Wrap sess.decode_entropy so its results and host ms are kept."""
@@ -942,8 +966,8 @@ def host_entropy_paths(sources, file0, trans, counted, compare, smi,
         datapath.decode_datapath = spy2
         try:
             t0 = time.perf_counter()
-            got, seen = counted_no_plain(lambda: sess.decode(payloads[0]),
-                                         ("K2",))
+            got, seen = counted_without_plain_loops(
+                counted, lambda: sess.decode(payloads[0]), ("K2",))
             wall = (time.perf_counter() - t0) * 1e3
         finally:
             datapath.decode_datapath = spy2.fn
@@ -987,8 +1011,8 @@ def host_entropy_paths(sources, file0, trans, counted, compare, smi,
         setattr(k1, wname, spy)
         datapath.decode_datapath = spy2
         try:
-            got, seen = counted_no_plain(lambda: sess.decode(pay_s[0]),
-                                         (kname, "K2", "LUT"))
+            got, seen = counted_without_plain_loops(
+                counted, lambda: sess.decode(pay_s[0]), (kname, "K2", "LUT"))
         finally:
             setattr(k1, wname, wrapper)
             datapath.decode_datapath = spy2.fn
@@ -1153,6 +1177,214 @@ def host_entropy_paths(sources, file0, trans, counted, compare, smi,
     log(f"transcode_iter over 4 frames (host route): equal to "
         f"transcode_batch; phase 13 took {time.perf_counter() - t_phase:.1f} "
         f"s")
+
+
+def rgb_training_path(sources, frames, streams, counted, smi,
+                      path_launches, device_profile) -> None:
+    """Phase 14: the decode-for-training path (path I) on the phase 3
+    sources: decode_device_rgb(_batch), the other samplings and an odd
+    size, JpegRgbDataset over an MJPEG stream, and the mjpeg helpers. Any
+    difference raises."""
+    from video_coding_tpu_torch.common.bitstream import BitReader
+    from video_coding_tpu_torch.common.frame import ChromaSubsampling, Frame
+    from video_coding_tpu_torch.common.plane import Plane
+    from video_coding_tpu_torch.model.header import Header, Parameters
+    from video_coding_tpu_torch.ops import color
+    from video_coding_tpu_torch.runtime.dataset import JpegRgbDataset
+    from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
+                                                       JpegEncoderSession)
+    from video_coding_tpu_torch.tools import mjpeg
+
+    t_phase = time.perf_counter()
+    header, payloads = sources["ri=1"]
+    F = len(payloads)
+    sess = JpegDecoderSession(header)
+    sess.decode_device_rgb_batch(payloads[:2])         # warm
+    rgb, seen = counted_without_plain_loops(
+        counted, lambda: sess.decode_device_rgb_batch(payloads),
+        ("K1", "K2", "LUT"))
+    others = [k for k in ("K1+hooks", "K3", "K4", "K5", "K6", "K7", "K8",
+                          "K9") if seen[k]]
+    if seen["K1"] != 1 or seen["K2"] != 1 or seen["LUT"] != 1 or others:
+        raise RuntimeError(f"path I must launch K1, K2 and the LUT once "
+                           f"each and nothing else: {seen}")
+    path_launches["I"] = seen
+    if (rgb.device.type != sess.device.type or rgb.dtype != torch.uint8
+            or tuple(rgb.shape) != (F, HEIGHT, WIDTH, 3)):
+        raise RuntimeError(f"path I gave {rgb.dtype} {tuple(rgb.shape)} on "
+                           f"{rgb.device}")
+    t0 = time.perf_counter()
+    cpu_rgb = JpegDecoderSession(header, device="cpu") \
+        .decode_device_rgb_batch(payloads[:2])
+    if not torch.equal(rgb[:2].cpu(), cpu_rgb):
+        raise RuntimeError("path I RGB differs from the CPU session's")
+    cpu_s = time.perf_counter() - t0
+    planes = sess.decode_device_batch_stacked(payloads)
+    comps = sess.components
+    y = planes[0][:, :HEIGHT, :WIDTH]
+    ch = [color.upsample_hv2(p[:, :c.actual_height, :c.actual_width])
+          for p, c in zip(planes[1:], comps[1:])]
+    if not torch.equal(rgb, color.yuv444_to_rgb(y, *ch)):
+        raise RuntimeError("path I RGB differs from yuv444_to_rgb of the "
+                           "upsampled planes of decode_device_batch_stacked")
+    src = [torch.from_numpy(a).to(sess.device) for a in frames[0]]
+    src_rgb = color.yuv420_to_rgb(*src)
+    db = psnr(rgb[0].cpu().numpy(), src_rgb.cpu().numpy())
+    if db <= 30.0:
+        raise RuntimeError(f"path I frame 0 RGB PSNR {db:.2f} dB <= 30 dB")
+    if not torch.equal(sess.decode_device_rgb(payloads[0]), rgb[0]):
+        raise RuntimeError("decode_device_rgb differs from frame 0 of the "
+                           "batch")
+    log(f"path I decode_device_rgb_batch {WIDTH}x{HEIGHT} q90 ri=1 F={F}: "
+        f"launches {seen}; (F, H, W, 3) uint8 on the card; frames 0-1 equal "
+        f"to device='cpu' ({cpu_s:.1f} s on the CPU); equal to "
+        f"yuv444_to_rgb of the upsampled stacked planes; frame 0 "
+        f"{db:.2f} dB against the source's RGB; decode_device_rgb of frame "
+        f"0 equal to the batch's")
+
+    def window() -> float:
+        t = time.perf_counter()
+        for _ in range(2):
+            sess.decode_device_rgb_batch(payloads)
+        torch.cuda.synchronize()
+        return 2 * F / (time.perf_counter() - t)
+
+    fps = sorted(window() for _ in range(3))
+    mpix = [f * WIDTH * HEIGHT / 1e6 for f in fps]
+    log(f"path I decode_device_rgb_batch: median {fps[1]:.2f} frames/s, "
+        f"{mpix[1]:.2f} MPix/s (windows of 2 dispatches: "
+        f"{', '.join(f'{x:.2f}' for x in fps)} frames/s) on {smi}")
+
+    # where the device time goes: one dispatch, then the tail alone. The
+    # profiler has dropped the first part of a window's events (no copy,
+    # K1, K2 or LUT in it): up to three profiles until one holds them
+    def part_of(key: str) -> str:
+        return ("K1" if "huffman_decode_kernel" in key else
+                "K2" if "decode_datapath_kernel" in key else
+                "LUT" if "lut_level" in key else
+                "copies" if key.startswith(("Memcpy", "Memset")) else
+                "torch ops")
+
+    for attempt in range(1, 4):
+        wall, by_name = device_profile(
+            lambda: sess.decode_device_rgb_batch(payloads))
+        held = {part_of(k) for k in by_name}
+        if {"K1", "K2", "LUT", "copies"} <= held:
+            break
+    parts = dict.fromkeys(("K1", "K2", "LUT", "copies", "torch ops"), 0.0)
+    for key, (ms, _n) in by_name.items():
+        parts[part_of(key)] += ms
+    busy = sum(parts.values())
+    log(f"breakdown: one decode_device_rgb_batch (F={F}) {wall:.2f} ms wall "
+        f"under the profiler (profile {attempt} of at most 3), device busy "
+        f"{busy:.3f} ms ({1 - busy / wall:.1%} idle): "
+        + ", ".join(f"{k} {v:.3f} ms" if k in held else
+                    f"{k} not measured (no such event in the profile)"
+                    for k, v in parts.items()))
+    for key, (ms, _n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:10]:
+        log(f"  device {ms:8.3f} ms  {key}")
+    tail_ms = time_ms(lambda: sess._rgb_tail(planes), 10)
+    tail_busy = sum(v[0] for v in device_profile(
+        lambda: sess._rgb_tail(planes))[1].values())
+    tail_bytes = F * (sum(c.actual_height * c.actual_width for c in comps)
+                      + HEIGHT * WIDTH * 3)
+    bms, by = bound_ms(tail_bytes, 0.0)
+    log(f"RGB tail (plain torch, not a kernel): {tail_ms:.4f} ms (CUDA "
+        f"events, median of 10), {tail_busy:.4f} ms of device time in its "
+        f"own profile; bound {bms:.4f} ms ({by}: each Y/U/V sample read "
+        f"once and each RGB byte written once, {tail_bytes / 1e6:.1f} MB) — "
+        f"{bms / tail_ms:.1%} of bound")
+
+    # the other samplings and an odd size, encoded on the card
+    y0, u0, v0 = frames[0]
+    variants = {
+        "4:2:2": ("c422", WIDTH, HEIGHT,
+                  (y0, u0.repeat(2, axis=0), v0.repeat(2, axis=0))),
+        "4:4:0": ("c440", WIDTH, HEIGHT,
+                  (y0, u0.repeat(2, axis=1), v0.repeat(2, axis=1))),
+        "4:4:4": ("c444", WIDTH, HEIGHT,
+                  (y0, u0.repeat(2, axis=0).repeat(2, axis=1),
+                   v0.repeat(2, axis=0).repeat(2, axis=1))),
+        "4:2:0, odd size,": ("c420", WIDTH - 1, HEIGHT - 1,
+                             (y0[:-1, :-1], u0[:-1, :-1], v0[:-1, :-1])),
+    }
+    for name, (maker, w, h, src) in variants.items():
+        enc = JpegEncoderSession(getattr(Parameters, maker)(w, h, 90), 1)
+        stream = enc.encode_device_batch([src])[0]
+        bits = BitReader(stream)
+        hdr = Header.decode(bits)
+        pay = stream[bits.bit_pos >> 3:]
+        got = JpegDecoderSession(hdr).decode_device_rgb(pay)
+        t0 = time.perf_counter()
+        ref = JpegDecoderSession(hdr, device="cpu").decode_device_rgb(pay)
+        if tuple(got.shape) != (h, w, 3) or not torch.equal(got.cpu(), ref):
+            raise RuntimeError(f"path I {name}: RGB differs from the CPU "
+                               "session's")
+        log(f"path I {name} {w}x{h}: decode_device_rgb equal to device='cpu'"
+            f" ({time.perf_counter() - t0:.1f} s on the CPU)")
+
+    # JpegRgbDataset over an MJPEG stream of the 16 sources
+    stream = mjpeg.join_stream(streams)
+    ds = JpegRgbDataset(stream, batch_size=8, prefetch=2)
+    batches = list(ds)
+    if (len(ds) != 2 or len(batches) != 2
+            or ds.frame_shape != (HEIGHT, WIDTH, 3)
+            or any(tuple(b.shape) != (8, HEIGHT, WIDTH, 3)
+                   or b.device.type != sess.device.type for b in batches)):
+        raise RuntimeError("JpegRgbDataset batches: "
+                           f"{[tuple(b.shape) for b in batches]}")
+    if not (torch.equal(batches[0], rgb[:8])
+            and torch.equal(batches[1], rgb[8:])):
+        raise RuntimeError("JpegRgbDataset differs from "
+                           "decode_device_rgb_batch")
+
+    def ds_window() -> float:
+        t = time.perf_counter()
+        for _ in ds:
+            pass
+        torch.cuda.synchronize()
+        return F / (time.perf_counter() - t)
+
+    ds_fps = sorted(ds_window() for _ in range(3))
+    drop = JpegRgbDataset(stream, batch_size=6, drop_remainder=True,
+                          session=ds.session)
+    if [b.shape[0] for b in drop] != [6, 6]:
+        raise RuntimeError("drop_remainder with batch_size=6 must give two "
+                           "batches")
+    try:
+        JpegRgbDataset(stream, sharding=object())
+    except NotImplementedError:
+        pass
+    else:
+        raise RuntimeError("JpegRgbDataset(sharding=...) did not raise")
+    log(f"JpegRgbDataset over the {F}-frame MJPEG stream, batch_size=8, "
+        f"prefetch=2: 2 batches of (8, {HEIGHT}, {WIDTH}, 3) on the card, "
+        f"equal to decode_device_rgb_batch; median {ds_fps[1]:.2f} frames/s "
+        f"(windows {', '.join(f'{x:.2f}' for x in ds_fps)}); batch_size=6 "
+        f"drop_remainder: 2 batches; sharding raises NotImplementedError")
+
+    # mjpeg: encode_stream (the host coder, pure Python) of 2 frames, and
+    # decode_stream of them through an entropy="tpu" session
+    t0 = time.perf_counter()
+    two = [Frame(Plane(data=y), Plane(data=u), Plane(data=v),
+                 ChromaSubsampling.C420) for y, u, v in frames[:2]]
+    enc_stream = mjpeg.encode_stream(two, quality=90, restart_interval=1)
+    if enc_stream != mjpeg.join_stream(streams[:2]):
+        raise RuntimeError("mjpeg.encode_stream differs from the sources' "
+                           "bytes")
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = mjpeg.decode_stream(
+        enc_stream, session=JpegDecoderSession(header, entropy="tpu"))
+    dec_s = time.perf_counter() - t0
+    if len(got) != 2 or not all(frames_equal(g, sess.decode_device(p))
+                                for g, p in zip(got, payloads)):
+        raise RuntimeError("mjpeg.decode_stream differs from decode_device")
+    log(f"mjpeg: encode_stream of 2 frames q90 ri=1 (host coder) equal to "
+        f"the sources' bytes, {enc_s:.1f} s; decode_stream with "
+        f"entropy='tpu' equal to decode_device frame by frame, {dec_s:.2f} "
+        f"s; phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1867,7 +2099,11 @@ def main() -> int:
     host_entropy_paths(sources, streams[0], trans, counted, compare, smi,
                        path_launches)
 
-    # 14. kernels line, 15. last line
+    # 14. path I: the decode-for-training path
+    rgb_training_path(sources, frames, streams, counted, smi, path_launches,
+                      device_profile)
+
+    # 15. kernels line, 16. last line
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name],

@@ -14,6 +14,7 @@ from video_coding_tpu.model import encoder as menc
 ENCODERS = {
     "420": (ChromaSubsampling.C420, menc.encode_420, menc.Parameters.c420),
     "422": (ChromaSubsampling.C422, menc.encode_422, menc.Parameters.c422),
+    "440": (ChromaSubsampling.C440, menc.encode_440, menc.Parameters.c440),
     "444": (ChromaSubsampling.C444, menc.encode_444, menc.Parameters.c444),
 }
 
@@ -39,6 +40,15 @@ def synth_frame(sub: str, w: int, h: int, seed: int) -> Frame:
 
 def encode(sub: str, frame: Frame, q: int, ri: int) -> bytes:
     return ENCODERS[sub][1](frame, q, restart_interval=ri)
+
+
+def synth_plane(w: int, h: int, seed: int) -> Plane:
+    """The luma plane of ``synth_frame`` (for monochrome streams)."""
+    return synth_frame("444", w, h, seed).y
+
+
+def encode_monochrome(plane: Plane, q: int, ri: int) -> bytes:
+    return menc.encode_monochrome(plane, q, restart_interval=ri)
 
 
 def header_payload(stream: bytes):

@@ -796,3 +796,80 @@ def test_transcode_host_route_on_card_matches_device_route(gpu):
         header, quality=60, restart_interval=1, device="cpu",
         entropy_out="host").transcode_batch(payloads)
     assert list(host.transcode_iter(payloads[::-1])) == got[::-1]
+
+
+
+def _rgb_stream(gpu, sub, w, h, ri, n=3):
+    """n random frames of one sampling (a ChromaSubsampling value) encoded
+    on the card: (header, header bytes, payloads)."""
+    from video_coding_tpu_torch.common.frame import ChromaSubsampling
+
+    cs = ChromaSubsampling(sub)
+    enc = JpegEncoderSession(getattr(Parameters, "c" + sub)(w, h, 85), ri,
+                             device=gpu)
+    rng = np.random.default_rng(w * h + ri)
+    cw, ch = cs.chroma_width(w), cs.chroma_height(h)
+    frames = [(rng.integers(0, 256, (h, w), dtype=np.uint8),
+               rng.integers(0, 256, (ch, cw), dtype=np.uint8),
+               rng.integers(0, 256, (ch, cw), dtype=np.uint8))
+              for _ in range(n)]
+    streams = enc.encode_device_batch(frames)
+    bits = BitReader(streams[0])
+    header = Header.decode(bits)
+    hdr_len = bits.bit_pos >> 3
+    return header, streams[0][:hdr_len], [s[hdr_len:] for s in streams]
+
+
+@pytest.mark.parametrize("sub,w,h,ri", [
+    ("420", 256, 128, 1), ("422", 256, 128, 0), ("440", 128, 96, 2),
+    ("444", 96, 64, 1), ("420", 1919, 1079, 1), ("422", 61, 45, 3)])
+def test_rgb_on_card_matches_cpu(gpu, sub, w, h, ri):
+    """decode_device_rgb(_batch) on the card: the CPU session's RGB, uint8
+    on the card, K2 launched once a batch."""
+    header, _hdr, payloads = _rgb_stream(gpu, sub, w, h, ri)
+    card = JpegDecoderSession(header, device=gpu)
+    cpu = JpegDecoderSession(header, device="cpu")
+    datapath.decode_datapath.launches = 0
+    rgb = card.decode_device_rgb_batch(payloads)
+    torch.cuda.synchronize()
+    assert datapath.decode_datapath.launches == 1
+    assert rgb.device.type == gpu.type and rgb.dtype == torch.uint8
+    assert rgb.shape == (len(payloads), h, w, 3)
+    assert torch.equal(rgb.cpu(), cpu.decode_device_rgb_batch(payloads))
+    assert torch.equal(card.decode_device_rgb(payloads[1]), rgb[1])
+
+
+def test_rgb_dataset_and_mjpeg_on_card(gpu):
+    from video_coding_tpu_torch.runtime.dataset import JpegRgbDataset
+    from video_coding_tpu_torch.tools import mjpeg
+
+    header, hdr, payloads = _rgb_stream(gpu, "420", 256, 128, 1, n=5)
+    stream = mjpeg.join_stream([hdr + p for p in payloads])
+    batches = list(JpegRgbDataset(stream, batch_size=2, prefetch=2))
+    assert [tuple(b.shape) for b in batches] == [(2, 128, 256, 3)] * 2 \
+        + [(1, 128, 256, 3)]
+    assert all(b.device.type == gpu.type for b in batches)
+    ref = JpegDecoderSession(header, device="cpu").decode_device_rgb_batch(
+        payloads)
+    assert torch.equal(torch.cat(batches).cpu(), ref)
+    for g, r in zip(mjpeg.decode_stream(stream),
+                    mjpeg.decode_stream(stream, device="cpu"), strict=True):
+        assert all((getattr(g, c).data == getattr(r, c).data).all()
+                   for c in "yuv")
+
+
+def test_pipeline_trace_on_card_matches_cpu(gpu):
+    """runtime.trace.pipeline_trace runs its stages on the card by default
+    and gives the CPU's trace, stage by stage."""
+    from video_coding_tpu_torch.runtime import trace
+
+    rng = np.random.default_rng(9)
+    coefs = rng.choice([-32767, -2047, -5, 0, 7, 2047, 32767],
+                       (300, 64)).astype(np.int32)
+    quant = rng.integers(1, 256, (300, 64)).astype(np.int32)
+    got = trace.pipeline_trace(coefs, quant)
+    want = trace.pipeline_trace(coefs, quant, device="cpu")
+    for f in ("coefs_zigzag", "dequant_zigzag", "dequant_natural",
+              "after_row_pass", "after_col_pass", "clipped", "recon"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)

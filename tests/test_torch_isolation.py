@@ -14,6 +14,7 @@ _CHILD = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None          # any `import jax` now fails
     import numpy as np
+    import torch
     from video_coding_tpu_torch.common.bitstream import BitReader
     from video_coding_tpu_torch.model.header import Header, Parameters
     from video_coding_tpu_torch.runtime.engine import (
@@ -90,8 +91,52 @@ _CHILD = textwrap.dedent("""
     assert (JpegTranscodeSession(rh, 60, 1, device="cpu",
                                  entropy_out="host").transcode(rp)
             == JpegTranscodeSession(rh, 60, 1, device="cpu").transcode(rp))
+    # the decode-for-training path, the golden model, the tools, tracing
+    import os
+    import tempfile
+    from video_coding_tpu_torch import tools
+    from video_coding_tpu_torch.model import encoder, util
+    from video_coding_tpu_torch.ops import color
+    from video_coding_tpu_torch.runtime import trace
+    from video_coding_tpu_torch.runtime.dataset import JpegRgbDataset
+    from video_coding_tpu_torch.tools import mjpeg, play
+    golden = encoder.encode_420(fr, 80, restart_interval=2)
+    assert golden == rs
+    bits = BitReader(golden)
+    dec_g = decoder.Decoder(Header.decode(bits), bits)
+    dec_g.decode()
+    assert (dec_g.get_yuv_frame().y.data == got[0].y.data).all()
+    assert (decoder.decode_a_frame(golden).u.data == got[0].u.data).all()
+    stream = mjpeg.join_stream([golden] * 3)
+    rgb = host.decode_device_rgb_batch([rp] * 3)
+    assert rgb.shape == (3, 96, 128, 3) and rgb.dtype == torch.uint8
+    assert (rgb[1] == host.decode_device_rgb(rp)).all()
+    batches = list(JpegRgbDataset(stream, batch_size=2, device="cpu"))
+    assert [tuple(b.shape) for b in batches] == [(2, 96, 128, 3),
+                                                 (1, 96, 128, 3)]
+    assert (batches[1][0] == rgb[0]).all()
+    assert len(mjpeg.decode_stream(stream, device="cpu")) == 3
+    assert mjpeg.encode_stream([fr], 80, 2, device="cpu") == golden
+    up = color.upsample_hv2(torch.from_numpy(big[1]))
+    assert up.shape == (96, 128)
+    yuv = tools.Yuv(*(plane.Plane(data=p) for p in
+                      (big[0], up.to(torch.uint8).numpy(), big[0])))
+    assert tools.compare.psnr(yuv.y, yuv.y) == float("inf")
+    assert tools.planar_444.to_420(yuv).u.data.shape == (48, 64)
+    assert play.yuv444_to_rgb(yuv).shape == (96, 128, 3)
+    assert util.pixel_block_to_string(range(64)).startswith("00 01")
+    tr = trace.pipeline_trace(np.ones((2, 64), np.int32),
+                              np.full(64, 4, np.int32), device="cpu")
+    assert tr.recon.shape == (2, 8, 8)
+    with tempfile.TemporaryDirectory() as d:
+        with trace.profile(d):
+            color.yuv420_to_rgb(torch.from_numpy(big[0]),
+                                torch.from_numpy(big[1]),
+                                torch.from_numpy(big[2]))
+        assert os.listdir(d)
     for mod in (frame, plane, size, gather_pack, pack_stuff, symbols, lookup,
-                sparse, dct, decoder):
+                sparse, dct, decoder, encoder, util, color, trace, mjpeg,
+                play, tools.yuv_format, tools.convert, tools.packed_422):
         assert mod.__name__ in sys.modules
     leaked = sorted(m for m in sys.modules
                     if m == "video_coding_tpu"
@@ -126,7 +171,12 @@ def test_port_sources_name_neither_jax_nor_reference_package():
     for mod in ("ops/lookup.py", "ops/sparse.py", "entropy/pack_stuff.py",
                 "entropy/gather_pack.py", "entropy/symbols.py",
                 "common/frame.py", "common/plane.py", "common/size.py",
-                "model/dct.py", "model/decoder.py"):
+                "model/dct.py", "model/decoder.py", "model/encoder.py",
+                "model/util.py", "ops/color.py", "runtime/dataset.py",
+                "runtime/trace.py", "tools/__init__.py", "tools/compare.py",
+                "tools/convert.py", "tools/mjpeg.py", "tools/packed_422.py",
+                "tools/planar_444.py", "tools/play.py", "tools/yuv.py",
+                "tools/yuv_format.py"):
         assert f"video_coding_tpu_torch/{mod}" in names
     pat = re.compile(r"^\s*(from|import)\s+(jax|video_coding_tpu)(\.|\s|$)",
                      re.M)

@@ -9,9 +9,10 @@ segment, 0xFFFF is a fill byte, any other marker ends the scan).
 ``destuff_segments`` gives the same bytes as one ``bytes`` object a
 segment, through the golden model's walk. ``index_scan`` is the
 reference's symbol walk in pure Python (its C++ form is not used here).
-``decode_scan`` / ``decode_scan_resync`` are the host decoder and
-``encode_scan`` the host coder, both in pure Python: the port has no C++
-engine.
+``decode_scan`` / ``decode_scan_resync`` are the host decoder, the golden
+model's ``decode_scan_blocks`` on the session's tables (its
+``SegmentDecodeError`` is re-exported here), and ``encode_scan`` the host
+coder, both in pure Python: the port has no C++ engine.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ from __future__ import annotations
 import numpy as np
 
 from ..common.bitstream import BitReader, BitWriter
-from ..model.decoder import (extract_entropy_segments_with_markers, mag,
-                             plan_segment_alignment)
+from ..model.decoder import (SegmentDecodeError, decode_scan_blocks,
+                             extract_entropy_segments_with_markers)
+from ..model.encoder import magnitude_bits, size_category
 from ..model.header import DecodeError
 from .tables import DecoderTables, EncoderTables
 
@@ -185,122 +187,30 @@ def index_scan(flat: np.ndarray, comp_idx: np.ndarray, stride: int,
     return bit_offsets, dc_preds
 
 
-class SegmentDecodeError(ValueError):
-    """Malformed entropy data; ``block`` is the failing global block."""
-
-    def __init__(self, block: int):
-        super().__init__(f"entropy decode failed at block {block}")
-        self.block = block
-
-
-def _decode_segment_py(segment: bytes, comp_idx: np.ndarray, first: int,
-                       count: int, tables: DecoderTables,
-                       coefs: np.ndarray) -> None:
-    """Decode ``count`` blocks of one restart segment into
-    ``coefs[first:first+count]``. Raises SegmentDecodeError naming the
-    failing (global) block index on malformed data."""
-    _decode_blocks_from_bits(BitReader(segment), comp_idx, first, count,
-                             tables, coefs)
-
-
-def _decode_blocks_from_bits(bits: BitReader, comp_idx: np.ndarray,
-                             first: int, count: int, tables: DecoderTables,
-                             coefs: np.ndarray,
-                             bit_limit: int | None = None) -> None:
-    dc_preds = [0] * len(tables.dc_luts)
-    for i in range(first, first + count):
-        try:
-            _decode_one_block(bits, comp_idx, i, tables, coefs, dc_preds)
-        except SegmentDecodeError:
-            raise
-        except ValueError:
-            # reader exhausted (cursor past end): decode error at block i
-            raise SegmentDecodeError(i) from None
-        # consuming past the segment's real bits means the block decoded
-        # zero-fill garbage (truncated data) — an error, checked after
-        # each block as the golden model does
-        if bit_limit is not None and bits.bit_pos > bit_limit:
-            raise SegmentDecodeError(i)
-
-
-def _decode_one_block(bits, comp_idx, i, tables, coefs, dc_preds):
-    c = int(comp_idx[i])
-    dc_tab = tables.dc_luts[c]
-    ac_tab = tables.ac_luts[c]
-    row = coefs[i]
-    length, data = dc_tab.lookup(bits.show(dc_tab.max_bits))
-    if length == 0:
-        raise SegmentDecodeError(i)
-    bits.advance(length)
-    dc_preds[c] += mag(data, bits.get(data) if data else 0)
-    row[0] = dc_preds[c]
-    cof = 1
-    while cof < 64:
-        length, data = ac_tab.lookup(bits.show(ac_tab.max_bits))
-        if length == 0:
-            raise SegmentDecodeError(i)
-        bits.advance(length)
-        run, size = (data >> 4) & 0xF, data & 0xF
-        val = mag(size, bits.get(size) if size else 0)
-        if val == 0 and run == 0:
-            break
-        cof += run
-        if cof >= 64:
-            raise SegmentDecodeError(i)
-        row[cof] = val
-        cof += 1
+def _blocks_args(comp_idx: np.ndarray, tables: DecoderTables):
+    """The golden decoder's per-block keys and (DC, AC) table pairs."""
+    return (np.asarray(comp_idx).tolist(),
+            list(zip(tables.dc_luts, tables.ac_luts)))
 
 
 def decode_scan(segments: list[bytes], comp_idx: np.ndarray,
                 blocks_per_segment: int,
                 tables: DecoderTables) -> np.ndarray:
     """Huffman-decode a whole scan on the host, segment after segment, in
-    pure Python. Returns (n_blocks, 64) int32 zigzag coefficients with DC
-    predictors resolved per segment. A wrong segment count raises
-    ValueError; malformed data raises SegmentDecodeError naming the
-    failing block."""
+    pure Python (``model.decoder.decode_scan_blocks``). Returns
+    (n_blocks, 64) int32 zigzag coefficients with DC predictors resolved
+    per segment. A wrong segment count raises ValueError; malformed data
+    raises SegmentDecodeError naming the failing block."""
     n_blocks = len(comp_idx)
     expected = (n_blocks + blocks_per_segment - 1) // blocks_per_segment
     if len(segments) != expected:
         raise ValueError(
             f"expected {expected} restart segments for {n_blocks} blocks "
             f"(interval {blocks_per_segment}), got {len(segments)}")
-    comp_idx = np.ascontiguousarray(comp_idx, dtype=np.int32)
-    coefs = np.zeros((n_blocks, 64), dtype=np.int32)
-    for s, segment in enumerate(segments):
-        first = s * blocks_per_segment
-        count = min(blocks_per_segment, n_blocks - first)
-        _decode_segment_py(segment, comp_idx, first, count, tables, coefs)
+    coefs, _ = decode_scan_blocks(segments, [],
+                                  *_blocks_args(comp_idx, tables),
+                                  blocks_per_segment)
     return coefs
-
-
-def _decode_run_py(segment: bytes, comp_idx: np.ndarray, slot0: int,
-                   n_slots: int, blocks_per_segment: int, n_blocks: int,
-                   tables: DecoderTables, coefs: np.ndarray) -> list[int]:
-    """Decode a multi-slot run: RST markers were lost, so ``segment``
-    carries several slots' payloads back to back (each 1-padded to a byte
-    boundary). DC predictors reset and bits re-align at every slot
-    boundary. Returns the damaged slot indices (error → conceal to the end
-    of the run, since the bit position is unreliable past it)."""
-    B = blocks_per_segment
-    bits = BitReader(segment)
-    for t in range(n_slots):
-        slot = slot0 + t
-        first = slot * B
-        count = min(B, n_blocks - first)
-        if count <= 0:
-            break
-        if t:
-            bits.align_to_byte()
-        try:
-            _decode_blocks_from_bits(bits, comp_idx, first, count, tables,
-                                     coefs, bit_limit=8 * len(segment))
-        except SegmentDecodeError as e:
-            run_end = min((slot0 + n_slots) * B, n_blocks)
-            coefs[e.block:run_end] = 0
-            return [s for s in range(slot, slot0 + n_slots)
-                    if s * B < n_blocks]
-    return []
 
 
 def decode_scan_resync(segments: list[bytes], comp_idx: np.ndarray,
@@ -308,7 +218,8 @@ def decode_scan_resync(segments: list[bytes], comp_idx: np.ndarray,
                        marker_indices: list[int] | None = None
                        ) -> tuple[np.ndarray, list[int]]:
     """Error-concealing scan decode using restart-marker
-    resynchronization, on the host in pure Python.
+    resynchronization, on the host in pure Python
+    (``model.decoder.decode_scan_blocks``).
 
     A decode error inside a segment conceals it from the failing block
     onward (all-zero coefficients → mid-gray after reconstruction); the
@@ -317,53 +228,17 @@ def decode_scan_resync(segments: list[bytes], comp_idx: np.ndarray,
     modulo-8 terminator indices, from ``rst_marker_indices``), segments
     are re-aligned by index first, so marker damage is survivable too: a
     destroyed RSTn merges two received segments, which are detected by the
-    index jump and decoded back-to-back. Truncated streams conceal the
-    missing segments; extras are ignored.
+    index jump and decoded back-to-back. Without them (or with a count
+    that does not match the segments) segment j is slot j. Truncated
+    streams conceal the missing segments; extras are ignored.
 
     Returns ``(coefs, damaged)`` — the (n_blocks, 64) int32 coefficients
     and the sorted list of damaged segment indices."""
-    B = blocks_per_segment
-    n_blocks = len(comp_idx)
-    expected = (n_blocks + B - 1) // B
-    comp_idx = np.ascontiguousarray(comp_idx, dtype=np.int32)
-    coefs = np.zeros((n_blocks, 64), dtype=np.int32)
-    if marker_indices is not None and len(marker_indices) == len(segments) - 1:
-        items, uncovered = plan_segment_alignment(
-            marker_indices, len(segments), expected)
-    else:
-        n_avail = min(len(segments), expected)
-        items = [(s, 1, s) for s in range(n_avail)]
-        uncovered = list(range(n_avail, expected))
-    damaged = set(uncovered)
-    for slot0, n_slots, j in items:
-        if n_slots > 1:
-            damaged.update(_decode_run_py(segments[j], comp_idx, slot0,
-                                          n_slots, B, n_blocks, tables,
-                                          coefs))
-            continue
-        first = slot0 * B
-        count = min(B, n_blocks - first)
-        if count <= 0:
-            continue
-        try:
-            _decode_blocks_from_bits(
-                BitReader(segments[j]), comp_idx, first, count, tables,
-                coefs, bit_limit=8 * len(segments[j]))
-        except SegmentDecodeError as e:
-            coefs[e.block:first + count] = 0  # partial failing block
-            damaged.add(slot0)
-    return coefs, sorted(damaged)
-
-
-def size_category(value: int) -> int:
-    """Bit-size category of a coefficient."""
-    return 0 if value == 0 else int(abs(value)).bit_length()
-
-
-def magnitude_bits(size: int, value: int) -> int:
-    """Magnitude code for a value of the given size."""
-    mask = (1 << size) - 1
-    return value & mask if value >= 0 else (value - 1) & mask
+    if marker_indices is None or len(marker_indices) != len(segments) - 1:
+        marker_indices = []
+    return decode_scan_blocks(segments, marker_indices,
+                              *_blocks_args(comp_idx, tables),
+                              blocks_per_segment, resync=True)
 
 
 def encode_scan(qcoefs: np.ndarray, comp_idx: np.ndarray,

@@ -1,15 +1,21 @@
-"""What the decoder session's host paths take from the golden decoder:
-the magnitude decode, the destuffing segment walk, the restart-segment
-alignment that resync is built on, the one-block Huffman decode, and the
-multi-scan (non-interleaved) decoder in numpy.
+"""The golden decoder in numpy: the single-scan ``Decoder`` (full-frame
+decode with a sequenced per-block API for lockstep testing), the
+multi-scan (non-interleaved) ``MultiScanDecoder``, and the pieces the
+decoder session's host paths take from them: the magnitude decode, the
+destuffing segment walk, the restart-segment alignment that resync is
+built on and the one-block Huffman decode.
 
 Restart markers are honoured: the entropy stream is split into segments at
-RSTn boundaries and DC predictors reset per segment. The full-frame
-interleaved decode runs in the sessions (``runtime/engine.py``), which
-take their geometry from ``model.header.DecoderGeometry``.
+RSTn boundaries and DC predictors reset per segment. The bulk decode is
+phase-split: a sequential entropy decode into a (num_blocks, 64)
+coefficient array, then batched dequant → dezigzag → IDCT → recon, the
+contract of the decode datapath K2. Geometry and tables come from
+``model/header.py`` (``DecoderGeometry``), as in the sessions.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -18,8 +24,9 @@ from ..common.frame import Frame
 from ..common.plane import Plane
 from . import marker_codes, markers
 from .dct import chen_inverse_8x8
-from .header import (DecodeError, Header, _find_component, _find_huffman_lut,
-                     _find_quant_table, _round_up)
+from . import header as _header
+from .header import (DecodeError, DecoderGeometry, Header, _find_component,
+                     _find_huffman_lut, _find_quant_table, _round_up)
 from .huffman import Lut
 from .zigzag import INVERSE as ZIGZAG_INVERSE
 
@@ -169,6 +176,229 @@ def _huffman_decode_block_inner(bits: BitReader, dc_tab: Lut, ac_tab: Lut,
         cof_cnt += 1
 
 
+class SegmentDecodeError(DecodeError, ValueError):
+    """Malformed entropy data; ``block`` is the failing global block. A
+    ``DecodeError`` for the golden decoder's callers and a ``ValueError``
+    for the host decoder's (``entropy/scan.py``), as in the JAX package."""
+
+    def __init__(self, block: int):
+        super().__init__(f"entropy decode failed at block {block}")
+        self.block = block
+
+
+def decode_scan_blocks(segments: list[bytes], marker_indices: list[int],
+                       keys: list, luts, blocks_per_segment: int,
+                       resync: bool = False):
+    """Entropy decode of one scan's blocks from its destuffed restart
+    segments → ((len(keys), 64) int32 zigzag coefficients with the DC
+    prediction resolved, the concealed segments or None). ``keys[i]``
+    names block i's component (its DC predictor) and ``luts[keys[i]]`` is
+    its (DC, AC) table pair. Restart segments reset the DC predictors.
+
+    Without ``resync`` a missing segment raises DecodeError and a
+    malformed one SegmentDecodeError naming its failing block. With it, the received segments are realigned to their slots by their
+    RSTn modulo-8 index (``plan_segment_alignment``) and each run is
+    decoded, zeroed from its first failing block to the run's end; slots
+    no segment claims stay zero. Both are listed, sorted."""
+    n = len(keys)
+    bps = blocks_per_segment
+    n_segments = -(-n // bps)
+    coefs = np.zeros((n, 64), dtype=np.int32)
+
+    def decode_slot(bits, slot, bit_limit=None):
+        """Decode one slot's blocks. Returns None, or the index of the
+        failing block (zeroed; earlier blocks are valid). With
+        ``bit_limit`` (resync), consuming past the segment's real bits
+        means zero-fill garbage, an error."""
+        dc_preds = {}
+        for i in range(slot * bps, min((slot + 1) * bps, n)):
+            key = keys[i]
+            row = coefs[i]
+            try:
+                huffman_decode_block(bits, *luts[key], row)
+                if bit_limit is not None and bits.bit_pos > bit_limit:
+                    raise DecodeError("segment data exhausted")
+            except DecodeError:
+                row[:] = 0  # the failing block may be partly written
+                return i
+            dc_preds[key] = dc_preds.get(key, 0) + int(row[0])
+            row[0] = dc_preds[key]
+        return None
+
+    if not resync:
+        for slot in range(n_segments):
+            if slot >= len(segments):
+                raise DecodeError(f"missing restart segment {slot}")
+            bad = decode_slot(BitReader(segments[slot]), slot)
+            if bad is not None:
+                raise SegmentDecodeError(bad)
+        return coefs, None
+    items, uncovered = plan_segment_alignment(marker_indices, len(segments),
+                                              n_segments)
+    damaged = set(uncovered)
+    for slot0, n_slots, j in items:
+        seg = segments[j]
+        bits = BitReader(seg)
+        for t in range(n_slots):
+            slot = slot0 + t
+            if slot * bps >= n:
+                break
+            if t:
+                bits.align_to_byte()  # slots are 1-padded to bytes
+            bad = decode_slot(bits, slot, bit_limit=8 * len(seg))
+            if bad is not None:
+                coefs[bad:min((slot0 + n_slots) * bps, n)] = 0
+                damaged.update(s for s in range(slot, slot0 + n_slots)
+                               if s * bps < n)
+                break
+    return coefs, sorted(damaged)
+
+
+def reconstruct_blocks(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """(N, 64) zigzag coefficients and (N, 64) zigzag quant values →
+    (N, 8, 8) uint8 pixels: dequant, clamp to the 12-bit coefficient
+    width (valid streams always fit; corrupt ones saturate here as in
+    every datapath, K2 included), dezigzag, Chen IDCT, clip, level shift."""
+    dequant_zz = coefs.astype(np.int64) * quant
+    np.clip(dequant_zz, -2048, 2047, out=dequant_zz)
+    dequant = np.zeros_like(dequant_zz)
+    dequant[:, ZIGZAG_INVERSE] = dequant_zz
+    idct = chen_inverse_8x8(dequant.reshape(-1, 8, 8))
+    return (np.clip(idct, -128, 127) + 128).astype(np.uint8)
+
+
+@dataclasses.dataclass
+class Component(_header.Component):
+    """A scan component's geometry and tables with its decode state: the
+    padded plane and, for the sequenced per-block API, the position and
+    scratch of the last block."""
+
+    plane: Plane = None
+    scan: markers.ScanComponent = None
+    dc_pred: int = 0
+    x: int = 0
+    y: int = 0
+    coefs: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(64, dtype=np.int32))
+    dequant: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(64, dtype=np.int64))
+    idct: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(64, dtype=np.int64))
+    recon: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(64, dtype=np.int64))
+
+
+class Decoder:
+    """Full-frame decoder of one interleaved scan."""
+
+    def __init__(self, header: Header, bits: BitReader):
+        geom = DecoderGeometry(header)
+        self.header = header
+        self.components: list[Component] = [
+            Component(**vars(g),
+                      plane=Plane(g.decoded_width, g.decoded_height),
+                      scan=sc)
+            for g, sc in zip(geom.components, header.scan.scan_components)]
+        self.entropy_segments, self.entropy_marker_indices = (
+            extract_entropy_segments_with_markers(bits))
+        self.restart_interval = geom.restart_interval
+        self._geometry = geom
+        self._schedule = None
+
+    # -- geometry ---------------------------------------------------------
+    @property
+    def macroblocks_wide(self) -> int:
+        c = self.components[0]
+        return c.decoded_width // (8 * c.component.horizontal_sampling_factor)
+
+    @property
+    def macroblocks_high(self) -> int:
+        c = self.components[0]
+        return c.decoded_height // (8 * c.component.vertical_sampling_factor)
+
+    def block_schedule(self) -> list[tuple[int, int, int]]:
+        """Flat (component_index, x, y) schedule in scan (MCU) order.
+        Memoized."""
+        if self._schedule is None:
+            self._schedule = self._geometry.block_schedule()
+        return self._schedule
+
+    # -- entropy ----------------------------------------------------------
+    def decode_entropy(self, resync: bool = False) -> np.ndarray:
+        """Sequential entropy decode of the whole scan: (num_blocks, 64)
+        int32 zigzag coefficients with the DC prediction resolved, in
+        ``block_schedule`` order (``decode_scan_blocks``). With
+        ``resync=True`` damaged restart segments are concealed instead of
+        raising, and ``self.damaged_segments`` lists them."""
+        sched = self.block_schedule()
+        mcu_size = sum(c.component.horizontal_sampling_factor
+                       * c.component.vertical_sampling_factor
+                       for c in self.components)
+        coefs, damaged = decode_scan_blocks(
+            self.entropy_segments, self.entropy_marker_indices,
+            [s[0] for s in sched],
+            [(c.dc_tab, c.ac_tab) for c in self.components],
+            (self.restart_interval * mcu_size if self.restart_interval
+             else len(sched)), resync)
+        self.damaged_segments: list[int] = damaged or []
+        return coefs
+
+    # -- numerics (batched) ----------------------------------------------
+    def reconstruct(self, coefs: np.ndarray) -> None:
+        """Batched dequant → 12-bit clamp → dezigzag → Chen IDCT →
+        clip/level shift → plane writes."""
+        sched = self.block_schedule()
+        comp_idx = np.array([s[0] for s in sched], dtype=np.int32)
+        qtabs = np.stack([c.quant_table for c in self.components])
+        recon = reconstruct_blocks(coefs, qtabs[comp_idx])
+        for i, (ci, x, y) in enumerate(sched):
+            self.components[ci].plane.data[y:y + 8, x:x + 8] = recon[i]
+
+    def decode(self, resync: bool = False) -> None:
+        self.reconstruct(self.decode_entropy(resync=resync))
+
+    # -- sequenced per-block API (lockstep testing hook) ------------------
+    def decode_blocks_seq(self):
+        """Generator yielding the Component after each block's decode, with
+        its coefs/dequant/idct/recon scratch filled."""
+        sched = self.block_schedule()
+        coefs_all = self.decode_entropy()
+        for i, (ci, x, y) in enumerate(sched):
+            comp = self.components[ci]
+            comp.x, comp.y = x, y
+            comp.coefs[:] = coefs_all[i]
+            comp.dc_pred = int(coefs_all[i][0])
+            dq = comp.coefs.astype(np.int64) * comp.quant_table
+            np.clip(dq, -2048, 2047, out=dq)  # 12-bit coefficient width
+            comp.dequant[ZIGZAG_INVERSE] = dq
+            comp.idct[:] = chen_inverse_8x8(
+                comp.dequant.reshape(8, 8)).reshape(64)
+            comp.recon[:] = np.clip(comp.idct, -128, 127) + 128
+            comp.plane.data[y:y + 8, x:x + 8] = (
+                comp.recon.reshape(8, 8).astype(np.uint8))
+            yield comp
+
+    # -- output -----------------------------------------------------------
+    def _crop(self, comp: Component) -> Plane:
+        """The decoded plane cropped to the component's actual size."""
+        if (comp.decoded_width != comp.actual_width
+                or comp.decoded_height != comp.actual_height):
+            out = Plane(comp.actual_width, comp.actual_height)
+            comp.plane.blit_available(out)
+            return out
+        return comp.plane
+
+    def get_decoded_planes(self) -> list[Plane]:
+        return [c.plane for c in self.components]
+
+    def get_planes(self) -> list[Plane]:
+        return [self._crop(c) for c in self.components]
+
+    def get_yuv_frame(self) -> Frame:
+        planes = self.get_planes()
+        return Frame.of_planes(planes[0], planes[1], planes[2])
+
+
 class MultiScanDecoder:
     """Baseline decoder for multi-scan streams — non-interleaved (one
     component per SOS) or mixed — on the host in numpy.
@@ -256,73 +486,14 @@ class MultiScanDecoder:
         self.bits.bit_pos = end * 8  # resume the marker loop here
         ri = (header.restart_interval.restart_interval
               if header.restart_interval else 0)
-        bps = ri * mcu_blocks if ri else len(sched)
-        n_segments = -(-len(sched) // bps)
-        coefs = np.zeros((len(sched), 64), dtype=np.int32)
-
-        def decode_slot(rdr, slot, bit_limit=None):
-            """Decode one slot's blocks. Returns None, or the index of the
-            failing block (zeroed; earlier blocks are valid). With
-            ``bit_limit`` (resync), consuming past the segment's real bits
-            means zero-fill garbage, an error."""
-            first = slot * bps
-            count = min(bps, len(sched) - first)
-            dc_preds = {k: 0 for k in tabs}
-            for i in range(first, first + count):
-                ident = sched[i][0]
-                row = coefs[i]
-                try:
-                    huffman_decode_block(rdr, tabs[ident][1],
-                                         tabs[ident][2], row)
-                    if bit_limit is not None and rdr.bit_pos > bit_limit:
-                        raise DecodeError("segment data exhausted")
-                except DecodeError:
-                    row[:] = 0
-                    return i
-                dc_preds[ident] += int(row[0])
-                row[0] = dc_preds[ident]
-            return None
-
-        if not resync:
-            for slot in range(n_segments):
-                if slot >= len(segments):
-                    raise DecodeError(f"missing restart segment {slot}")
-                bad = decode_slot(BitReader(segments[slot]), slot)
-                if bad is not None:
-                    raise DecodeError(
-                        f"entropy decode failed at block {bad}")
-        else:
-            # realign by RSTn index, conceal damaged runs, per scan
-            items, uncovered = plan_segment_alignment(
-                marks, len(segments), n_segments)
-            damaged = set(uncovered)
-            for slot0, n_slots, j in items:
-                seg = segments[j]
-                rdr = BitReader(seg)
-                for t in range(n_slots):
-                    slot = slot0 + t
-                    if slot * bps >= len(sched):
-                        break
-                    if t:
-                        rdr.align_to_byte()
-                    bad = decode_slot(rdr, slot, bit_limit=8 * len(seg))
-                    if bad is not None:
-                        run_end = min((slot0 + n_slots) * bps, len(sched))
-                        coefs[bad:run_end] = 0
-                        damaged.update(
-                            s for s in range(slot, slot0 + n_slots)
-                            if s * bps < len(sched))
-                        break
-            self.damaged_segments.extend(
-                (scan_idx, s) for s in sorted(damaged))
-        # dequant (12-bit coefficient width) → dezigzag → IDCT → recon
-        qarr = np.stack([tabs[ident][0] for ident, _x, _y in sched])
-        dequant_zz = coefs.astype(np.int64) * qarr
-        np.clip(dequant_zz, -2048, 2047, out=dequant_zz)
-        dequant = np.zeros_like(dequant_zz)
-        dequant[:, ZIGZAG_INVERSE] = dequant_zz
-        idct = chen_inverse_8x8(dequant.reshape(-1, 8, 8))
-        recon = (np.clip(idct, -128, 127) + 128).astype(np.uint8)
+        coefs, damaged = decode_scan_blocks(
+            segments, marks, [ident for ident, _x, _y in sched],
+            {k: t[1:] for k, t in tabs.items()},
+            ri * mcu_blocks if ri else len(sched), resync)
+        if resync:  # realigned and concealed per scan
+            self.damaged_segments.extend((scan_idx, s) for s in damaged)
+        recon = reconstruct_blocks(
+            coefs, np.stack([tabs[ident][0] for ident, _x, _y in sched]))
         for i, (ident, x, y) in enumerate(sched):
             self.planes[ident].data[y:y + 8, x:x + 8] = recon[i]
 
@@ -370,3 +541,25 @@ class MultiScanDecoder:
         if len(planes) != 3:
             raise DecodeError("YUV frame needs 3 components")
         return Frame.of_planes(planes[0], planes[1], planes[2])
+
+
+def decode_a_frame(data: bytes) -> Frame:
+    """One-shot full decode of a JPEG byte stream. Streams whose first
+    scan covers only part of the frame's components (non-interleaved,
+    multi-scan) go to ``MultiScanDecoder``."""
+    bits = BitReader(data)
+    header = Header.decode(bits)
+    if (header.frame is not None and header.scan is not None
+            and len(header.scan.scan_components)
+            < len(header.frame.components)):
+        mdec = MultiScanDecoder(header, bits)
+        mdec.decode()
+        return mdec.get_yuv_frame()
+    dec = Decoder(header, bits)
+    dec.decode()
+    return dec.get_yuv_frame()
+
+
+def decode_frame_bytes(path: str) -> Frame:
+    with open(path, "rb") as f:
+        return decode_a_frame(f.read())

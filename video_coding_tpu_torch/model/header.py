@@ -10,6 +10,7 @@ derives the same arrays the reference sessions derive.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -270,6 +271,18 @@ class Parameters:
     def c444(cls, width: int, height: int, quality: int) -> "Parameters":
         return cls.yuv(width, height, quality, (1, 1, 1, 1, 1, 1))
 
+    @classmethod
+    def monochrome(cls, width: int, height: int,
+                   quality: int) -> "Parameters":
+        qnt_luma = quant_tables.scale(quant_tables.LUMA, quality)
+        return cls(
+            width=width, height=height,
+            quant_tables=(Identified(0, qnt_luma),),
+            dc_huffman_tables=(Identified(0, DC_LUMA),),
+            ac_huffman_tables=(Identified(0, AC_LUMA),),
+            scan_components=(ScanComponentParams(0, 0, 0, 1, 1, 1),),
+        )
+
 
 def _find_identified(kind: str, ident: int, items) -> object:
     for it in items:
@@ -337,13 +350,11 @@ class EncoderGeometry:
                                   p.ac_huffman_tables)
                  for sc in p.scan_components])
 
-    def write_headers(self, w: BitWriter) -> None:
-        """SOI, APP0, DQTs, [DRI], SOF0, DHTs, SOS."""
+    def write_headers(self, w: BitWriter, sos: bool = True) -> None:
+        """SOI, APP0, DQTs, [DRI], SOF0, DHTs and, with ``sos``, the SOS
+        of one interleaved scan of every component."""
         p = self.params
-
-        def marker(code):
-            w.put_bits(0xFF, 8, stuffing=False)
-            w.put_bits(code, 8, stuffing=False)
+        marker = functools.partial(write_marker, w)
 
         marker(marker_codes.SOI)
         app0 = b"video-coding-tpu"
@@ -377,21 +388,32 @@ class EncoderGeometry:
             marker(marker_codes.DHT)
             markers.Dht(0, 1, t.identifier, list(t.data.lengths),
                         list(t.data.values)).encode(w)
-        marker(marker_codes.SOS)
-        markers.Sos(
-            length=0,
-            number_of_image_components=len(p.scan_components),
-            scan_components=[
-                markers.ScanComponent(
-                    selector=sc.component,
-                    dc_coef_selector=sc.dc_huffman_table,
-                    ac_coef_selector=sc.ac_huffman_table)
-                for sc in p.scan_components],
-            start_of_predictor_selection=0,
-            end_of_predictor_selection=63,
-            successive_approximation_bit_high=0,
-            successive_approximation_bit_low=0,
-        ).encode(w)
+        if sos:
+            write_sos(w, p.scan_components)
+
+
+def write_marker(w: BitWriter, code: int) -> None:
+    w.put_bits(0xFF, 8, stuffing=False)
+    w.put_bits(code, 8, stuffing=False)
+
+
+def write_sos(w: BitWriter, scan_components) -> None:
+    """SOS of one scan over ``scan_components`` (ScanComponentParams)."""
+    write_marker(w, marker_codes.SOS)
+    markers.Sos(
+        length=0,
+        number_of_image_components=len(scan_components),
+        scan_components=[
+            markers.ScanComponent(
+                selector=sc.component,
+                dc_coef_selector=sc.dc_huffman_table,
+                ac_coef_selector=sc.ac_huffman_table)
+            for sc in scan_components],
+        start_of_predictor_selection=0,
+        end_of_predictor_selection=63,
+        successive_approximation_bit_high=0,
+        successive_approximation_bit_low=0,
+    ).encode(w)
 
 
 __all__ = ["DecodeError", "Header", "DecoderGeometry", "EncoderGeometry",

@@ -11,6 +11,10 @@
           the gather packer by ``device_pack``) → wire assembly; the host
           joins header + body + EOI.
 
+``decode_device_rgb(_batch)`` end the decode on the device in RGB: the
+planes are cropped, the chroma upsampled and converted to (…, H, W, 3)
+uint8 (``ops/color.py``, plain torch), the input of a training step.
+
 The decoder session also has the host-entropy route: the host Huffman
 decoder (pure Python; with resync, error concealment by restart segment)
 or the padded-matrix decode on the device, then a dense or sparse
@@ -51,10 +55,15 @@ from ..model import marker_codes
 from ..model.decoder import MultiScanDecoder
 from ..model.header import (DecodeError, DecoderGeometry, EncoderGeometry,
                             Header, Parameters)
-from ..ops import datapath, sparse
+from ..ops import color, datapath, sparse
 from ..state import DecoderState, EncoderState
 
 _EOI = bytes((0xFF, marker_codes.EOI))
+# the encoder preset of each chroma subsampling
+SUBSAMPLING_PRESETS = {ChromaSubsampling.C420: Parameters.c420,
+                       ChromaSubsampling.C422: Parameters.c422,
+                       ChromaSubsampling.C440: Parameters.c440,
+                       ChromaSubsampling.C444: Parameters.c444}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -533,6 +542,57 @@ class JpegDecoderSession:
         """One frame → a ``Frame`` of its planes cropped to the frame's
         actual size (three components), else a list of ``Plane``s."""
         return self._to_frame(self.decode_device_e2e(entropy_data))
+
+    # -- RGB for training ----------------------------------------------------
+    def _rgb_tail(self, planes):
+        """Decoded (MCU-padded) planes, (H, W) or (F, H, W) each → (…, H,
+        W, 3) uint8 RGB on their device. Chroma is cropped before
+        upsampling (the edge replication sees the frame's edge, not the MCU
+        padding), then to luma's size.
+
+        Chroma is cropped to T.81's chroma size, luma's divided by the
+        sampling ratio and rounded up: at a 61-wide 4:2:0 frame that is
+        31 columns, the last of them the stream's own. The JAX package's
+        tail crops to the rounded-down ``actual_width`` and raises a shape
+        error at such sizes; at every other size the two agree."""
+        comps = self.components
+        yw, yh = comps[0].actual_width, comps[0].actual_height
+        sh = (comps[0].component.horizontal_sampling_factor
+              // comps[1].component.horizontal_sampling_factor)
+        sv = (comps[0].component.vertical_sampling_factor
+              // comps[1].component.vertical_sampling_factor)
+
+        def chroma(p):
+            p = p[..., :-(-yh // sv), :-(-yw // sh)]
+            if sh == 2 and sv == 2:
+                p = color.upsample_hv2(p)
+            elif sh == 2:
+                p = color.upsample_h2(p)
+            elif sv == 2:  # 4:4:0, vertical-only subsampling
+                p = color.upsample_v2(p)
+            return p[..., :yh, :yw]
+
+        y = planes[0][..., :yh, :yw]
+        return color.yuv444_to_rgb(y, chroma(planes[1]), chroma(planes[2]))
+
+    def _check_rgb(self) -> None:
+        if len(self.components) != 3:
+            raise DecodeError("RGB output needs a 3-component scan")
+
+    def decode_device_rgb(self, entropy_data: bytes) -> torch.Tensor:
+        """Entropy bytes of one frame → (H, W, 3) uint8 RGB on the device:
+        Huffman decode, K2, chroma upsampling and color conversion all
+        there (the decode-for-training path)."""
+        self._check_rgb()
+        return self._rgb_tail(self.decode_device_e2e(entropy_data))
+
+    def decode_device_rgb_batch(self,
+                                entropy_list: list[bytes]) -> torch.Tensor:
+        """Entropy bytes of F frames → (F, H, W, 3) uint8 RGB on the device:
+        one Huffman decode launch and one K2 launch for all frames, then the
+        RGB tail on the (F, H, W) plane stacks."""
+        self._check_rgb()
+        return self._rgb_tail(self.decode_device_batch_stacked(entropy_list))
 
     def _to_frame(self, planes_dev) -> Frame | list[Plane]:
         planes = [Plane(data=np.ascontiguousarray(
@@ -1162,10 +1222,7 @@ def encode_jpeg(frame: Frame, quality: int = 75,
                 subsampling: ChromaSubsampling = ChromaSubsampling.C420,
                 restart_interval: int = 0, device=None) -> bytes:
     """One-shot encode of a Frame."""
-    maker = {ChromaSubsampling.C420: Parameters.c420,
-             ChromaSubsampling.C422: Parameters.c422,
-             ChromaSubsampling.C440: Parameters.c440,
-             ChromaSubsampling.C444: Parameters.c444}[subsampling]
-    params = maker(frame.width, frame.height, quality)
+    params = SUBSAMPLING_PRESETS[subsampling](frame.width, frame.height,
+                                              quality)
     return JpegEncoderSession(params, restart_interval,
                               device=device).encode(frame)
