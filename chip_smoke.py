@@ -24,7 +24,14 @@
 - the decode-for-training path:
     I  decode_device_rgb(_batch): K1 → K2 → the RGB tail (chroma
        upsampling and color conversion in plain torch) on the card, and
-       JpegRgbDataset and the mjpeg helpers over it.
+       JpegRgbDataset and the mjpeg helpers over it;
+- the multi-device layer and the entry points:
+    J  a one-rank NCCL group and a (1, 1) codec mesh: the sessions' mesh=
+       (decode K1 → K2, encode K3 → K4 or K9 → K8, transcode), the
+       dataset's sharding, the sharded datapaths (K2, K3),
+       sharded_decode_e2e (K5 → K2) and mjpeg_codec_step (K3, K9, K2);
+    K  the five CLIs' main(argv) on a 1080p frame: model_cli,
+       simulate_cli, generate_cli (PTX and SASS), oyuv, dct_tool.
 
     python3 chip_smoke.py
 
@@ -143,12 +150,39 @@ Phases (any failure ends the run with a nonzero exit):
                  to device='cpu'; JpegRgbDataset over the MJPEG stream of
                  the 16 sources (batch_size=8, prefetch=2: two batches,
                  equal to the batch decode, frames/s; batch_size=6 with
-                 drop_remainder: two; sharding raises); mjpeg.encode_stream
+                 drop_remainder: two; a sharding other than a mesh
+                 raises); mjpeg.encode_stream
                  of 2 frames (the sources' bytes) and decode_stream of them
                  through an entropy="tpu" session (equal to decode_device);
- 15. a JSON line of per-kernel numbers (with each kernel's launches on the
-     own paths A-I);
- 16. a last JSON line {"ok": true, "device": {...}}.
+ 15. path J    — a one-rank NCCL process group and codec_mesh(1) on the
+                 phase 3 sources, each call with the counts reset before
+                 and read after, held against its unsharded counterpart
+                 and timed beside it (wall ms, median of 3):
+                 decode_device_batch_stacked of the 16 frames (K1, LUT,
+                 K2) and decode_device of frame 0; encode_device_batch of
+                 the 16 frames at q90 ri=1 (K3, K4: the sources' bytes)
+                 and q75 ri=8 (K3, K9, K8); transcode_batch (q75 ri=1);
+                 JpegRgbDataset(sharding=mesh) against sharding=None;
+                 sharded_decode_datapath / sharded_encode_datapath on the
+                 783,360 blocks against K2 / K3; sharded_decode_e2e on
+                 frame 0's 8,160 segments (K5, K2) against decode_device's
+                 planes; mjpeg_codec_step on the luma blocks (16, 32640,
+                 8, 8): K3 and K2 exact, rates equal to
+                 segment_coded_bits, PSNR within 1e-3 dB of float64
+                 numpy; the process group destroyed at the end;
+ 16. path K    — each CLI's main(argv) in-process on frame 0 written as
+                 its ri=1 JPEG and as raw YUV: model_cli decode (header,
+                 log, frame with --engine model and torch: equal files)
+                 and encode (log, frame: --engine torch, --engine model
+                 and the source's bytes equal); every simulate subcommand
+                 exits 0 with its verdict (inspect --block 0 --stages);
+                 generate of the four artifacts (PTX with .target sm_90a
+                 and each kernel's .entry, then --compiled SASS); oyuv
+                 compare and convert; dct both; the card subcommands'
+                 launch counts; wall seconds each;
+ 17. a JSON line of per-kernel numbers (with each kernel's launches on the
+     own paths A-K);
+ 18. a last JSON line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the reference package. Needs one
 CUDA card; exits nonzero without one.
@@ -1354,15 +1388,17 @@ def rgb_training_path(sources, frames, streams, counted, smi,
                            "batches")
     try:
         JpegRgbDataset(stream, sharding=object())
-    except NotImplementedError:
+    except TypeError:
         pass
     else:
-        raise RuntimeError("JpegRgbDataset(sharding=...) did not raise")
+        raise RuntimeError("JpegRgbDataset(sharding=<not a mesh>) did not "
+                           "raise")
     log(f"JpegRgbDataset over the {F}-frame MJPEG stream, batch_size=8, "
         f"prefetch=2: 2 batches of (8, {HEIGHT}, {WIDTH}, 3) on the card, "
         f"equal to decode_device_rgb_batch; median {ds_fps[1]:.2f} frames/s "
         f"(windows {', '.join(f'{x:.2f}' for x in ds_fps)}); batch_size=6 "
-        f"drop_remainder: 2 batches; sharding raises NotImplementedError")
+        f"drop_remainder: 2 batches; a sharding other than a mesh raises "
+        f"TypeError (path J runs sharding=mesh)")
 
     # mjpeg: encode_stream (the host coder, pure Python) of 2 frames, and
     # decode_stream of them through an entropy="tpu" session
@@ -1386,6 +1422,336 @@ def rgb_training_path(sources, frames, streams, counted, smi,
         f"entropy='tpu' equal to decode_device frame by frame, {dec_s:.2f} "
         f"s; phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
+
+def _add_seen(total: dict, seen: dict) -> None:
+    for k, v in seen.items():
+        total[k] = total.get(k, 0) + v
+
+
+def multi_device_path(sources, frames, streams, counted, smi,
+                      path_launches) -> None:
+    """Phase 15: path J, the multi-device layer on a one-rank NCCL group
+    and a (1, 1) codec mesh: the sessions' mesh=, the dataset's sharding
+    and the sharded pipelines on the phase 3 sources, each equal to its
+    unsharded counterpart and timed beside it. More than one rank is
+    proven only on the CPU with gloo (one card here). Any difference
+    raises; the process group is destroyed at the end."""
+    import socket
+
+    import torch.distributed as dist
+
+    from video_coding_tpu_torch.entropy import gather_pack
+    from video_coding_tpu_torch.entropy.decode_tables import pack_segments
+    from video_coding_tpu_torch.entropy.scan import (_destuff_parts,
+                                                     destuff_segments)
+    from video_coding_tpu_torch.model.header import Parameters
+    from video_coding_tpu_torch.ops import datapath
+    from video_coding_tpu_torch.parallel import (codec_mesh,
+                                                 mjpeg_codec_step,
+                                                 sharded_decode_datapath,
+                                                 sharded_decode_e2e,
+                                                 sharded_encode_datapath)
+    from video_coding_tpu_torch.entropy.huffman_encode import packed_tables
+    from video_coding_tpu_torch.parallel.pipeline import _luma_rate_tables
+    from video_coding_tpu_torch.runtime.dataset import JpegRgbDataset
+    from video_coding_tpu_torch.runtime.engine import (
+        JpegDecoderSession, JpegEncoderSession, JpegTranscodeSession,
+        _blocks_from_plane, _plane_from_blocks)
+    from video_coding_tpu_torch.tools import mjpeg
+
+    t_phase = time.perf_counter()
+    header, payloads = sources["ri=1"]
+    F = len(payloads)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    seen_j: dict = {}
+    times = []
+
+    def run(name, call, must, plain_call=None):
+        """The mesh call with the counts reset and read, then it and its
+        unsharded counterpart timed (wall ms, median of 3 after a
+        warm-up)."""
+        out, seen = counted_without_plain_loops(counted, call, must)
+        _add_seen(seen_j, seen)
+        ms = wall_ms(call, 3)
+        plain_ms = wall_ms(plain_call, 3) if plain_call else None
+        times.append((name, ms, plain_ms))
+        log(f"path J {name}: mesh {ms:.2f} ms, unsharded "
+            + (f"{plain_ms:.2f} ms" if plain_call else "-")
+            + f" (wall, median of 3); launches "
+            f"{ {k: v for k, v in seen.items() if v} }")
+        return out, seen
+
+    try:
+        mesh = codec_mesh(1)
+        if tuple(mesh.shape) != (1, 1):
+            raise RuntimeError(f"codec_mesh(1) gave {mesh}")
+        dec = JpegDecoderSession(header)
+        mdec = JpegDecoderSession(header, mesh=mesh)
+        mdec.decode_device_batch_stacked(payloads[:2])          # warm
+        planes, _ = run("decode_device_batch_stacked F=16",
+                     lambda: mdec.decode_device_batch_stacked(payloads),
+                     ("K1", "K2", "LUT"),
+                     lambda: dec.decode_device_batch_stacked(payloads))
+        ref_planes = dec.decode_device_batch_stacked(payloads)
+        for p, r in zip(planes, ref_planes):
+            if not torch.equal(p.to_local(), r) or \
+                    tuple(p.shape) != tuple(r.shape):
+                raise RuntimeError("mesh decode_device_batch_stacked differs "
+                                   "from the unsharded session")
+        got, _ = run("decode_device frame 0",
+                  lambda: mdec.decode_device(payloads[0]),
+                  ("K1", "K2", "LUT"),
+                  lambda: dec.decode_device(payloads[0]))
+        if not frames_equal(got, dec.decode_device(payloads[0])):
+            raise RuntimeError("mesh decode_device differs")
+
+        for ri, q, must in ((1, 90, ("K3", "K4")),
+                            (8, 75, ("K3", "K8", "K9"))):
+            p = Parameters.c420(WIDTH, HEIGHT, q)
+            enc = JpegEncoderSession(p, ri)
+            menc = JpegEncoderSession(p, ri, mesh=mesh)
+            menc.encode_device_batch(frames[:2])                  # warm
+            out, seen = run(f"encode_device_batch F=16 q{q} ri={ri}",
+                            lambda menc=menc: menc.encode_device_batch(
+                                frames),
+                            must,
+                            lambda enc=enc: enc.encode_device_batch(frames))
+            ref = streams if ri == 1 else enc.encode_device_batch(frames)
+            if out != ref:
+                raise RuntimeError(f"mesh encode ri={ri} bytes differ")
+            if seen["K8"] if ri == 1 else seen["K4"]:
+                raise RuntimeError(f"the ri={ri} mesh encode took the other "
+                                   f"packer: {seen}")
+
+        trans = JpegTranscodeSession(header, quality=75, restart_interval=1)
+        mtrans = JpegTranscodeSession(header, quality=75, restart_interval=1,
+                                      mesh=mesh)
+        mtrans.transcode_batch(payloads[:2])                      # warm
+        out, _ = run("transcode_batch F=16 q75 ri=1",
+                  lambda: mtrans.transcode_batch(payloads),
+                  ("K1", "K2", "K3", "K4", "LUT"),
+                  lambda: trans.transcode_batch(payloads))
+        if out != trans.transcode_batch(payloads):
+            raise RuntimeError("mesh transcode bytes differ")
+
+        stream = mjpeg.join_stream(streams)
+        plain_ds = JpegRgbDataset(stream, batch_size=8)
+        mesh_ds = JpegRgbDataset(stream, batch_size=8, sharding=mesh)
+        batches, _ = run("JpegRgbDataset 2 batches of 8",
+                      lambda: list(mesh_ds), ("K1", "K2", "LUT"),
+                      lambda: list(plain_ds))
+        ref = list(plain_ds)
+        if len(batches) != 2 or not all(
+                torch.equal(b.to_local(), r) and tuple(b.shape)
+                == tuple(r.shape) for b, r in zip(batches, ref)):
+            raise RuntimeError("JpegRgbDataset(sharding=mesh) differs from "
+                               "sharding=None")
+
+        # the sharded datapaths on the 16 frames' blocks
+        parts, lens_parts = _destuff_parts(payloads, dec.n_segments)
+        coefs, _inv = dec._decode_coefs_pool(parts, lens_parts)
+        coefs = coefs.view(-1, 64)
+        N = coefs.shape[0]
+        qdec = dec._quant_seg.repeat(N // dec.blocks_per_segment, 1)
+        px, _ = run(f"sharded_decode_datapath N={N}",
+                 lambda: sharded_decode_datapath(mesh, coefs, qdec),
+                 ("K2",), lambda: datapath.decode_datapath(coefs, qdec))
+        ref_px = datapath.decode_datapath(coefs, qdec)
+        if not torch.equal(px.to_local(), ref_px):
+            raise RuntimeError("sharded_decode_datapath differs from K2")
+        enc = JpegEncoderSession(Parameters.c420(WIDTH, HEIGHT, 75), 1)
+        qenc = enc.state.quant.repeat(N // enc.n_blocks, 1)
+        qc, _ = run(f"sharded_encode_datapath N={N}",
+                 lambda: sharded_encode_datapath(mesh, ref_px, qenc),
+                 ("K3",), lambda: datapath.encode_datapath(ref_px, qenc))
+        if not torch.equal(qc.to_local(),
+                           datapath.encode_datapath(ref_px, qenc)):
+            raise RuntimeError("sharded_encode_datapath differs from K3")
+
+        # sharded_decode_e2e on frame 0's segments (K5, K2)
+        segbytes, _lens = pack_segments(destuff_segments(payloads[0]))
+        B = dec.blocks_per_segment
+        S = segbytes.shape[0]
+        e2e_args = (mesh, segbytes, np.full(S, B, np.int32),
+                    dec.comp_idx[:B], dec.tables, dec.quant[:B], B)
+        px0, _ = run(f"sharded_decode_e2e S={S}",
+                     lambda: sharded_decode_e2e(*e2e_args), ("K5", "K2"),
+                     lambda: dec.decode_device_e2e(payloads[0]))
+        blocks = px0.to_local().reshape(-1, 8, 8)
+        for (idx, nby, nbx), ref in zip(dec.state.plane_idx,
+                                        dec.decode_device_e2e(payloads[0])):
+            if not torch.equal(
+                    _plane_from_blocks(blocks[idx][None], nby, nbx)[0], ref):
+                raise RuntimeError("sharded_decode_e2e differs from "
+                                   "decode_device")
+
+        # mjpeg_codec_step on the 16 frames' luma
+        luma = _blocks_from_plane(ref_planes[0], *dec.plane_geom[0][1:])
+        qluma = enc.state.quant[:1].repeat(luma.shape[1], 1)   # luma rows
+        (qcs, recon, rates, db), _ = run(
+            f"mjpeg_codec_step {tuple(luma.shape)}",
+            lambda: mjpeg_codec_step(mesh, luma, qluma), ("K3", "K2", "K9"))
+        flat_px = luma.reshape(-1, 8, 8)
+        qc_ref = datapath.encode_datapath(flat_px, qluma)
+        if not (torch.equal(qcs.to_local().reshape(-1, 64), qc_ref)
+                and torch.equal(recon.to_local().reshape(-1, 8, 8),
+                                datapath.decode_datapath(qc_ref, qluma))):
+            raise RuntimeError("mjpeg_codec_step differs from K3 / K2")
+        n_blk = qc_ref.shape[0]
+        dev = qc_ref.device
+        seg_bits = gather_pack.segment_coded_bits(
+            qc_ref, torch.zeros(n_blk, dtype=torch.int32, device=dev),
+            torch.full((1,), -1, dtype=torch.int32, device=dev),
+            *(torch.from_numpy(t).to(dev) for t in
+              packed_tables(*_luma_rate_tables())),
+            blocks_per_segment=1).view(F, -1).sum(1, dtype=torch.int32)
+        if not torch.equal(rates, seg_bits):
+            raise RuntimeError("mjpeg_codec_step rates differ from "
+                               "segment_coded_bits")
+        a = flat_px.cpu().numpy().astype(np.float64)
+        b = recon.to_local().cpu().numpy().reshape(a.shape)
+        want = 10 * np.log10(255.0 ** 2 / np.mean((a - b) ** 2))
+        if abs(float(db) - want) > 1e-3:
+            raise RuntimeError(f"mjpeg_codec_step PSNR {float(db)} dB, "
+                               f"float64 numpy {want} dB")
+        log(f"path J mjpeg_codec_step: rates equal to segment_coded_bits "
+            f"({int(rates.sum())} bits in all), PSNR {float(db):.6f} dB "
+            f"against float64 numpy {want:.6f} dB")
+    finally:
+        dist.destroy_process_group()
+    path_launches["J"] = seen_j
+    log(f"path J on {smi}: " + "; ".join(
+        f"{n} {ms:.2f} / " + (f"{pms:.2f}" if pms else "-") + " ms"
+        for n, ms, pms in times)
+        + f" (mesh / unsharded); phase 15 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def cli_paths(frames, streams, counted, smi, path_launches) -> None:
+    """Phase 16: path K, each CLI's main(argv) in-process on files written
+    from the sources (one 1080p frame as its ri=1 JPEG and as raw YUV);
+    the card subcommands' launch counts read; wall seconds each. Any
+    failure raises."""
+    import contextlib
+    import io
+    import pathlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from video_coding_tpu_torch import kernels
+    from video_coding_tpu_torch.cli import (dct_tool, generate_cli,
+                                            model_cli, oyuv, simulate_cli)
+
+    t_phase = time.perf_counter()
+    d = pathlib.Path(kernels.BUILD_DIR).parent / "chip_smoke_cli"
+    d.mkdir(parents=True, exist_ok=True)
+    jpg = d / "frame0.jpg"
+    jpg.write_bytes(streams[0])
+    raw = d / "frame0.yuv"
+    raw.write_bytes(b"".join(p.tobytes() for p in frames[0]))
+    size = f"{WIDTH}x{HEIGHT}"
+    seen_k: dict = {}
+    secs = []
+
+    def cli(name, main, argv, must=()):
+        """main(argv) with its output kept: (exit code, stdout)."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc, seen = counted(lambda: main([str(a) for a in argv]), must)
+        secs.append((name, time.perf_counter() - t0))
+        _add_seen(seen_k, seen)
+        if rc != 0:
+            raise RuntimeError(f"path K {name} exited {rc}:\n"
+                               f"{buf.getvalue()[-2000:]}")
+        return buf.getvalue()
+
+    out_model = d / "model.yuv"
+    out_torch = d / "torch.yuv"
+    cli("model decode frame --engine model", model_cli.main,
+        ["decode", "frame", jpg, out_model])
+    cli("model decode frame --engine torch", model_cli.main,
+        ["--engine", "torch", "decode", "frame", jpg, out_torch], ("K2",))
+    if out_torch.read_bytes() != out_model.read_bytes():
+        raise RuntimeError("model_cli decode: --engine torch differs from "
+                           "--engine model")
+    cli("model decode header", model_cli.main, ["decode", "header", jpg])
+    cli("model decode log", model_cli.main,
+        ["decode", "log", jpg, "--num-blocks", "4"])
+    enc_args = ["--size", size, "--quality", "90", "--restart-interval", "1"]
+    jm, jt = d / "model.jpg", d / "torch.jpg"
+    cli("model encode frame --engine model", model_cli.main,
+        ["encode", "frame", raw, jm] + enc_args)
+    cli("model encode frame --engine torch", model_cli.main,
+        ["--engine", "torch", "encode", "frame", raw, jt] + enc_args,
+        ("K3",))
+    if not jt.read_bytes() == jm.read_bytes() == streams[0]:
+        raise RuntimeError("model_cli encode: --engine torch, --engine "
+                           "model and the golden model's bytes differ")
+    cli("model encode log", model_cli.main,
+        ["encode", "log", raw, "--size", size, "--num-blocks", "2",
+         "--verbose"])
+
+    for name, argv, must, verdict in (
+            ("decoder", ["decoder", jpg], ("K1", "K2", "LUT"), "PASS"),
+            ("decoder-accelerator", ["decoder-accelerator", jpg], ("K2",),
+             "PASS"),
+            ("codeblock", ["codeblock", jpg, "--entropy", "tpu"],
+             ("K1", "LUT"), "0 mismatched"),
+            ("encoder-accelerator",
+             ["encoder-accelerator", raw] + enc_args, ("K3",),
+             "byte-identical"),
+            ("filter-stuffed-bytes", ["filter-stuffed-bytes", jpg], (),
+             "100/100 match"),
+            ("inspect", ["inspect", jpg, "--block", "0", "--stages"],
+             ("K2",), "identical coefficients")):
+        out = cli(f"simulate {name}", simulate_cli.main, argv, must)
+        if verdict not in out:
+            raise RuntimeError(f"simulate {name}: no '{verdict}' in\n"
+                               f"{out[-2000:]}")
+
+    # nvcc -ptx of the five sources at once, then the four artifacts
+    t0 = time.perf_counter()
+    srcs = sorted({src for parts in generate_cli.ARTIFACTS.values()
+                   for src, _k in parts})
+    with ThreadPoolExecutor(len(srcs)) as ex:
+        list(ex.map(kernels.ptx, srcs))
+    log(f"path K: nvcc -ptx of {len(srcs)} sources in parallel, "
+        f"{time.perf_counter() - t0:.1f} s")
+    for art, parts in generate_cli.ARTIFACTS.items():
+        for flag in ([], ["--compiled"]):
+            out = cli(f"generate {art} {' '.join(flag)}".strip(),
+                      generate_cli.main, [art] + flag)
+            need = [k for _s, k in parts]
+            if not flag:
+                need += [".target sm_90a", ".entry"]
+            missing = [k for k in need if k not in out]
+            if missing:
+                raise RuntimeError(f"generate {art} {flag}: {missing} "
+                                   "missing")
+            if art == "codec-step" and "('data', 'seg')" not in out:
+                raise RuntimeError("generate codec-step printed no mesh")
+
+    out = cli("oyuv compare", oyuv.main,
+              ["compare", "psnr", "y", raw, out_torch, "--size", size])
+    if not out.startswith("0: "):
+        raise RuntimeError(f"oyuv compare: {out[-500:]}")
+    conv = d / "frame0.444"
+    cli("oyuv convert", oyuv.main,
+        ["convert", raw, conv, "--size", size, "--in-format", "420",
+         "--out-format", "444"])
+    if conv.stat().st_size != WIDTH * HEIGHT * 3:
+        raise RuntimeError("oyuv convert: wrong 4:4:4 size")
+    out = cli("dct both", dct_tool.main, ["both", "--count", "1000"])
+    if "max_err=" not in out:
+        raise RuntimeError(f"dct: {out}")
+    path_launches["K"] = seen_k
+    log(f"path K on {smi}: " + "; ".join(f"{n} {s:.2f} s" for n, s in secs)
+        + f"; launches {({k: v for k, v in seen_k.items() if v})}; phase 16 "
+        f"took {time.perf_counter() - t_phase:.1f} s")
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2103,7 +2469,13 @@ def main() -> int:
     rgb_training_path(sources, frames, streams, counted, smi, path_launches,
                       device_profile)
 
-    # 15. kernels line, 16. last line
+    # 15. path J: the multi-device layer on a one-rank mesh
+    multi_device_path(sources, frames, streams, counted, smi, path_launches)
+
+    # 16. path K: the CLIs
+    cli_paths(frames, streams, counted, smi, path_launches)
+
+    # 17. kernels line, 18. last line
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name],

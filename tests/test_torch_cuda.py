@@ -133,7 +133,7 @@ def test_decode_routes_on_card(gpu, monkeypatch, route):
     payloads = payloads[:n]
     if name == "decode_segments_streamed":
         # 24 lanes of 96 blocks: the shape rule keeps K6 for more and longer
-        monkeypatch.setattr(engine, "auto_strategy",
+        monkeypatch.setattr(huffman_decode, "auto_strategy",
                             lambda S, L, B: "streamed")
     wrapper = getattr(huffman_decode, name)
     spy = _Spy(wrapper)
@@ -873,3 +873,103 @@ def test_pipeline_trace_on_card_matches_cpu(gpu):
               "after_row_pass", "after_col_pass", "clipped", "recon"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
                                       err_msg=f)
+
+
+_MESH_CHILD = """
+import socket
+import numpy as np
+import torch
+import torch.distributed as dist
+from video_coding_tpu_torch.common.bitstream import BitReader
+from video_coding_tpu_torch.entropy import huffman_decode, huffman_encode
+from video_coding_tpu_torch.entropy import pack_stuff
+from video_coding_tpu_torch.model.header import Header, Parameters
+from video_coding_tpu_torch.parallel import codec_mesh
+from video_coding_tpu_torch.runtime.engine import (
+    JpegDecoderSession, JpegEncoderSession, JpegTranscodeSession)
+
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=1, rank=0)
+mesh = codec_mesh(1)
+assert tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+rng = np.random.default_rng(0)
+w, h = 256, 128
+frames = [(rng.integers(0, 256, (h, w), dtype=np.uint8),
+           rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
+           rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+          for _ in range(4)]
+for ri, kernel in ((1, huffman_encode.encode_segments),
+                   (8, pack_stuff.pack_stuff)):
+    p = Parameters.c420(w, h, 80)
+    ref = JpegEncoderSession(p, ri, device_pack="pallas")
+    sharded = JpegEncoderSession(p, ri, device_pack="pallas", mesh=mesh)
+    kernel.launches = 0
+    got = sharded.encode_device_batch(frames)
+    assert kernel.launches >= 1, ri   # one a rung of the budget ladder
+    assert got == ref.encode_device_batch(frames), ri
+streams = JpegEncoderSession(Parameters.c420(w, h, 80), 1) \\
+    .encode_device_batch(frames)
+bits = BitReader(streams[0])
+header = Header.decode(bits)
+payloads = [s[bits.bit_pos >> 3:] for s in streams]
+dec = JpegDecoderSession(header)
+mdec = JpegDecoderSession(header, mesh=mesh)
+huffman_decode.decode_flat.launches = 0
+planes = mdec.decode_device_batch_stacked(payloads)
+assert huffman_decode.decode_flat.launches == 1
+for a, b in zip(planes, dec.decode_device_batch_stacked(payloads)):
+    assert torch.equal(a.full_tensor(), b)
+for a, b in zip(mdec.decode_device_e2e(payloads[1]),
+                dec.decode_device_e2e(payloads[1])):
+    assert torch.equal(a, b)
+t_ref = JpegTranscodeSession(header, 60, 1).transcode_batch(payloads)
+assert JpegTranscodeSession(header, 60, 1, mesh=mesh) \\
+    .transcode_batch(payloads) == t_ref
+dist.destroy_process_group()
+print("MESH OK")
+"""
+
+
+def test_one_rank_nccl_mesh_sessions_match_unsharded(gpu):
+    """A one-rank NCCL mesh on the card: the sharded decode (K1), encode
+    (K4 at ri=1, K9 + K8 at ri=8) and transcode equal the unsharded
+    sessions. In a subprocess: the process group must not outlive it."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    r = subprocess.run([sys.executable, "-c", _MESH_CHILD], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0 and "MESH OK" in r.stdout, r.stderr[-4000:]
+
+
+def test_generate_prints_k2_ptx(gpu, capsys):
+    from video_coding_tpu_torch.cli import generate_cli
+
+    assert generate_cli.main(["decoder"]) == 0
+    out = capsys.readouterr().out
+    assert ".target sm_90a" in out and ".entry" in out
+    assert "decode_datapath_kernel" in out
+    assert generate_cli.main(["entropy-decoder", "--compiled"]) == 0
+    sass = capsys.readouterr().out
+    assert "huffman_decode_padded_kernel" in sass
+    assert "huffman_decode_kernel" in sass
+
+
+def test_simulate_codeblock_launches_k1(gpu, tmp_path, capsys):
+    from video_coding_tpu_torch.cli import simulate_cli
+
+    header, payloads = _streams(gpu, n=1, w=512, h=256)
+    enc = JpegEncoderSession(Parameters.c420(512, 256, 80), 1, device=gpu)
+    jpg = tmp_path / "f.jpg"
+    jpg.write_bytes(enc._header_bytes + payloads[0] + b"\xff\xd9")
+    huffman_decode.decode_flat.launches = 0
+    assert simulate_cli.main(["codeblock", str(jpg), "--entropy",
+                              "tpu"]) == 0
+    assert "0 mismatched" in capsys.readouterr().out
+    assert huffman_decode.decode_flat.launches == 1

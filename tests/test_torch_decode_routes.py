@@ -173,7 +173,7 @@ def test_every_strategy_decodes_the_golden_planes(monkeypatch, how, batch):
     here because such a shape is too large for a CPU test."""
     stream = _stream("420", 64, 48, 75, 5, seed=5)   # last segment short
     if how == "streamed":
-        monkeypatch.setattr(tengine, "auto_strategy",
+        monkeypatch.setattr(huffman_decode, "auto_strategy",
                             lambda S, L, B: "streamed")
         dec, payload = _port(stream)
     else:

@@ -173,7 +173,8 @@ def test_scan_coders_match_reference(bps):
     assert tpu_encode.encode_scan_tpu(q, ci, bps, tabs) == ref
     ptabs = _port_tables(tabs)
     assert tscan.encode_scan(q, ci, bps, ptabs) == ref
-    assert gather_pack.encode_scan_tpu(q, ci, bps, ptabs) == ref
+    assert gather_pack.encode_scan_tpu(q, ci, bps, ptabs,
+                                          device="cpu") == ref
     body = tscan.encode_scan_stream(q.astype(np.int16), ci, bps, ptabs)
     assert body == jscan.encode_scan_stream(q, ci, bps, tabs)
 
@@ -187,7 +188,8 @@ def test_scan_coders_dense_worst_case_and_range_check():
     for bps in (24, 5):
         ref = jscan.encode_scan(q, ci, bps, tabs, use_native=False)
         assert tscan.encode_scan(q, ci, bps, ptabs) == ref
-        assert gather_pack.encode_scan_tpu(q, ci, bps, ptabs) == ref
+        assert gather_pack.encode_scan_tpu(q, ci, bps, ptabs,
+                                          device="cpu") == ref
     q[3, 7] = 2048
     with pytest.raises(ValueError, match="12-bit"):
         tscan.encode_scan(q, ci, 24, ptabs)

@@ -134,9 +134,25 @@ _CHILD = textwrap.dedent("""
                                 torch.from_numpy(big[1]),
                                 torch.from_numpy(big[2]))
         assert os.listdir(d)
+    # the multi-device layer and the CLIs
+    from video_coding_tpu_torch import parallel
+    from video_coding_tpu_torch.cli import (dct_tool, generate_cli, model_cli,
+                                            oyuv, simulate_cli)
+    from video_coding_tpu_torch.parallel import mesh, multihost, pipeline
+    assert len(parallel.__all__) == 12
+    assert dct_tool.main(["both", "--count", "3"]) == 0
+    with tempfile.TemporaryDirectory() as d:
+        jpg = os.path.join(d, "f.jpg")
+        with open(jpg, "wb") as f:
+            f.write(golden)
+        assert simulate_cli.main(["codeblock", jpg, "--device", "cpu"]) == 0
+        assert model_cli.main(["--engine", "torch", "--device", "cpu",
+                               "decode", "frame", jpg,
+                               os.path.join(d, "f.yuv")]) == 0
     for mod in (frame, plane, size, gather_pack, pack_stuff, symbols, lookup,
                 sparse, dct, decoder, encoder, util, color, trace, mjpeg,
-                play, tools.yuv_format, tools.convert, tools.packed_422):
+                play, tools.yuv_format, tools.convert, tools.packed_422,
+                mesh, multihost, pipeline, generate_cli, oyuv):
         assert mod.__name__ in sys.modules
     leaked = sorted(m for m in sys.modules
                     if m == "video_coding_tpu"
@@ -176,7 +192,11 @@ def test_port_sources_name_neither_jax_nor_reference_package():
                 "runtime/trace.py", "tools/__init__.py", "tools/compare.py",
                 "tools/convert.py", "tools/mjpeg.py", "tools/packed_422.py",
                 "tools/planar_444.py", "tools/play.py", "tools/yuv.py",
-                "tools/yuv_format.py"):
+                "tools/yuv_format.py", "device.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/pipeline.py",
+                "parallel/multihost.py", "cli/__init__.py", "cli/model_cli.py",
+                "cli/simulate_cli.py", "cli/generate_cli.py", "cli/oyuv.py",
+                "cli/dct_tool.py"):
         assert f"video_coding_tpu_torch/{mod}" in names
     pat = re.compile(r"^\s*(from|import)\s+(jax|video_coding_tpu)(\.|\s|$)",
                      re.M)
@@ -195,3 +215,24 @@ def test_sessions_without_device_raise_when_no_gpu(monkeypatch):
     with pytest.raises(RuntimeError):
         engine.resolve_device("cuda")
     assert engine.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_encode_scan_tpu_defaults_to_the_card(monkeypatch):
+    """The gather packer's one-shot coder runs on the card unless asked for
+    the CPU, as its JAX counterpart runs on the default accelerator."""
+    import numpy as np
+
+    from video_coding_tpu_torch.entropy import gather_pack
+    from video_coding_tpu_torch.entropy.tables import pack_encoder_tables
+    from video_coding_tpu_torch.model.header import Parameters
+
+    p = Parameters.c420(16, 16, 75)
+    tabs = pack_encoder_tables([p.dc_huffman_tables[0].data],
+                               [p.ac_huffman_tables[0].data])
+    q = np.zeros((4, 64), np.int32)
+    ci = np.zeros(4, np.int32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gather_pack.encode_scan_tpu(q, ci, 1, tabs)
+    assert len(gather_pack.encode_scan_tpu(q, ci, 1, tabs,
+                                           device="cpu")) == 4

@@ -157,6 +157,9 @@ def test_dataset_list_input_drop_remainder_and_session(stream10):
 
 
 def test_dataset_sharding_is_not_ported(stream10):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """Only a rank mesh (``DeviceMesh``) shards the port's dataset; any
+    other sharding object (the JAX package takes a ``jax.sharding``) is
+    refused. The mesh is tested in tests/test_torch_parallel.py."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         JpegRgbDataset(stream10, batch_size=8, sharding=object(),
                        device="cpu")

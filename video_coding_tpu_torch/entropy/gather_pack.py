@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .huffman_encode import device_encoder_tables, m_out_for, packed_tables
 from .symbols import append_pad_slot, prev_same_component, segment_slots
 from .tables import EncoderTables
@@ -174,10 +175,10 @@ def segment_coded_bits(qcoefs, comp_idx, prev_same_comp, dc_flat, ac_flat,
 
 def encode_scan_tpu(qcoefs: np.ndarray, comp_idx: np.ndarray,
                     blocks_per_segment: int, tables: EncoderTables,
-                    device="cpu") -> list[bytes]:
+                    device=None) -> list[bytes]:
     """Drop-in alternative to ``scan.encode_scan`` with the packing on
-    ``device`` through the gather packer. Returns stuffed per-segment byte
-    buffers."""
+    ``device`` (None: the card, raising without one) through the gather
+    packer. Returns stuffed per-segment byte buffers."""
     n_blocks = len(comp_idx)
     B = blocks_per_segment
     n_segments = (n_blocks + B - 1) // B
@@ -190,7 +191,7 @@ def encode_scan_tpu(qcoefs: np.ndarray, comp_idx: np.ndarray,
     dc_flat, ac_flat = packed_tables(*device_encoder_tables(tables))
     prev_same = np.array(prev_same_component(ci[:B]), dtype=np.int32)
     valid = (np.arange(n_segments * B) < n_blocks) if pad_blocks else None
-    dev = torch.device(device)
+    dev = resolve_device(device)
     q_t, ci_t, prev_t, dc_t, ac_t = (
         torch.from_numpy(a).to(dev) for a in (q, ci, prev_same, dc_flat,
                                               ac_flat))

@@ -50,7 +50,12 @@ from __future__ import annotations
 
 import torch
 
+import numpy as np
+
 from .. import kernels
+from ..device import resolve_device
+from .decode_tables import (auto_strategy, expand_luts, pack_segments,
+                            range_tables)
 
 MAX_COMPONENTS = 4
 # K6's symbol cap a block: the reference's (66 + 64)//2 + 2 iterations of
@@ -619,3 +624,57 @@ def decode_segments_lanes(segbytes: torch.Tensor, seg_blocks: torch.Tensor,
                        lo, hi, offset, values,
                        blocks_per_segment=blocks_per_segment,
                        n_components=n_components)
+
+
+def decode_padded(how: str, segbytes: torch.Tensor, seg_blocks: torch.Tensor,
+                  comp_sched: torch.Tensor, lo: torch.Tensor,
+                  hi: torch.Tensor, offset: torch.Tensor,
+                  values: torch.Tensor, *, blocks_per_segment: int,
+                  n_components: int,
+                  luts: torch.Tensor | None = None) -> torch.Tensor:
+    """A padded (S, L) lane matrix → (S, B, 64) coefficients by strategy:
+    ``"auto"`` (``auto_strategy``: K1, K6 or K5 by shape), ``"pallas_t"``
+    (K1 over the rows), ``"pallas"`` (K5), or a plain loop, for an
+    explicit choice only: ``"range"`` and ``"lut"`` (which reads the
+    expanded tables ``luts``)."""
+    B = blocks_per_segment
+    if how == "lut":
+        return decode_segments_lut_plain(segbytes, seg_blocks, comp_sched,
+                                         luts, blocks_per_segment=B,
+                                         n_components=n_components)
+    if how == "auto":
+        how = auto_strategy(segbytes.shape[0], segbytes.shape[1], B)
+    fn = {"pallas_t": decode_segments_lanes,
+          "streamed": decode_segments_streamed,
+          "pallas": decode_segments,
+          "range": decode_segments_plain}[how]
+    return fn(segbytes, seg_blocks, comp_sched, lo, hi, offset, values,
+              blocks_per_segment=B, n_components=n_components)
+
+
+def decode_scan_tpu(segments: list[bytes], comp_idx, blocks_per_segment: int,
+                    tables, mode: str = "auto", device=None) -> np.ndarray:
+    """Drop-in alternative to ``scan.decode_scan`` with the Huffman decode
+    on ``device`` (None: the card, raising without one): destuffed
+    segments padded into one lane matrix and decoded by ``mode`` (see
+    ``decode_padded``; ``"auto"`` runs K1, K6 or K5 on the card). Returns
+    (n_blocks, 64) int32 zigzag coefficients."""
+    dev = resolve_device(device)
+    n_blocks = len(comp_idx)
+    B = blocks_per_segment
+    segbytes, _lens = pack_segments(segments)
+    S = len(segments)
+    seg_blocks = np.full(S, B, dtype=np.int32)
+    if n_blocks % B:
+        seg_blocks[-1] = n_blocks % B
+    comp_sched = np.asarray(comp_idx[:B], dtype=np.int32)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    luts = up(np.concatenate(expand_luts(tables))) if mode == "lut" \
+        else None
+    out = decode_padded(mode, up(segbytes), up(seg_blocks), up(comp_sched),
+                        *map(up, range_tables(tables)), blocks_per_segment=B,
+                        n_components=len(tables.dc_maxbits), luts=luts)
+    return out.view(S * B, 64)[:n_blocks].cpu().numpy()

@@ -134,6 +134,49 @@ def build() -> pathlib.Path:
     return lib
 
 
+def ptx(source: str) -> str:
+    """PTX of one source (``nvcc -ptx`` for ``sm_90a``), written beside the
+    library under the build directory; raises without ``nvcc``."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{pathlib.Path(source).stem}_{_source_hash()}.ptx"
+    if not out.exists():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        run = subprocess.run(
+            [nvcc, "-arch=sm_90a", "-std=c++17", "-O3", "-ptx",
+             str(CSRC / source), "-o", str(tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if run.returncode != 0:
+            raise RuntimeError(f"nvcc -ptx failed for {source}:\n"
+                               + run.stdout.decode(errors="replace"))
+        os.replace(tmp, out)
+    return out.read_text()
+
+
+def sass(kernel_names: tuple[str, ...]) -> str:
+    """SASS of the named kernels in the built library (``cuobjdump
+    -sass``): each function whose mangled name holds one of the names."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        raise RuntimeError("cuobjdump not found: the SASS cannot be shown")
+    lib = build()
+    cached = lib.with_suffix(".sass")     # one dump of the library
+    if not cached.exists():
+        tmp = cached.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_text(subprocess.run(
+            [tool, "-sass", str(lib)], check=True, stdout=subprocess.PIPE,
+            text=True).stdout)
+        os.replace(tmp, cached)
+    dump = cached.read_text()
+    keep, out = False, []
+    for line in dump.splitlines():
+        if "Function :" in line:
+            keep = any(k in line for k in kernel_names)
+        if keep:
+            out.append(line)
+    return "\n".join(out)
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib

@@ -36,14 +36,16 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..common.bitstream import BitReader, BitWriter
 from ..common.frame import ChromaSubsampling, Frame
 from ..common.plane import Plane
+from ..device import resolve_device
 from ..entropy.assemble import assemble_frames
 from ..entropy import gather_pack, huffman_decode, pack_stuff
-from ..entropy.decode_tables import (auto_strategy, expand_luts,
-                                     flat_words_route, range_tables)
+from ..entropy.decode_tables import (expand_luts, flat_words_route,
+                                     range_tables)
 from ..entropy.huffman_encode import (device_encoder_tables, encode_segments,
                                       m_out_for)
 from ..entropy import scan as entropy_scan
@@ -56,6 +58,7 @@ from ..model.decoder import MultiScanDecoder
 from ..model.header import (DecodeError, DecoderGeometry, EncoderGeometry,
                             Header, Parameters)
 from ..ops import color, datapath, sparse
+from ..parallel.mesh import flat_group, mesh_device, mesh_index, shard_rows
 from ..state import DecoderState, EncoderState
 
 _EOI = bytes((0xFF, marker_codes.EOI))
@@ -66,21 +69,26 @@ SUBSAMPLING_PRESETS = {ChromaSubsampling.C420: Parameters.c420,
                        ChromaSubsampling.C444: Parameters.c444}
 
 
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; None means the GPU, and raises when
-    there is none (pass ``device="cpu"`` to run the plain versions)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' explicitly to "
-                "run the plain PyTorch versions of the kernels")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{dev} requested but CUDA is not available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
+def _session_device(device, mesh) -> torch.device:
+    """A session's device: ``resolve_device``'s rule, or on a mesh this
+    rank's device of the mesh (a named device must be of its type)."""
+    if mesh is None:
+        return resolve_device(device)
+    dev = mesh_device(mesh) if device is None else resolve_device(device)
+    if dev.type != mesh.device_type:
+        raise ValueError(f"device {dev} is not of the mesh's type "
+                         f"{mesh.device_type!r}")
     return dev
+
+
+def _mesh_size(mesh) -> int:
+    return 1 if mesh is None else mesh.size()
+
+
+def _mesh_depth(mesh, depth: int) -> int:
+    """Chunks in flight for a pipelined map: one at a time on a mesh,
+    where the collectives must come in the same order on every rank."""
+    return depth if mesh is None else 1
 
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -146,7 +154,20 @@ class JpegDecoderSession:
     nonzeros) or ``"auto"`` (sparse on a GPU), then runs K2 and the plane
     gather. ``resync=True`` decodes on the host with error concealment by
     restart segment, whatever ``entropy`` says, and leaves the concealed
-    segments in ``last_damaged_segments``."""
+    segments in ``last_damaged_segments``.
+
+    ``mesh`` (a ``DeviceMesh`` from ``parallel.codec_mesh``) shards the
+    fused device decode over its ranks: every rank destuffs the frames,
+    the length-sorted lane pool is padded with zero-length lanes (which
+    decode nothing) to a multiple of the mesh size, and each rank uploads
+    and decodes only its contiguous run of lanes (the Huffman decode by
+    ``device_huffman``, then K2); an ``all_gather`` of the pixels gives
+    ``decode_device``, ``decode_device_e2e`` and ``decode_device_batch``
+    the same planes on every rank. ``decode_device_batch_stacked`` keeps
+    the planes frame-sharded (a ``DTensor``, ``Shard(0)`` on every mesh
+    dimension) when the mesh size divides the frame count. The session's
+    device is then this rank's device of the mesh. The host-entropy route
+    does not shard."""
 
     STRATEGIES = ("auto", "pallas", "pallas_t", "range", "lut")
     ENTROPY = ("native", "python", "tpu")
@@ -155,8 +176,9 @@ class JpegDecoderSession:
     def __init__(self, header: Header, device=None,
                  device_huffman: str = "auto",
                  decode_gather: str | None = None, entropy: str = "native",
-                 coef_transfer: str = "auto"):
-        self.device = resolve_device(device)
+                 coef_transfer: str = "auto", mesh=None):
+        self.device = _session_device(device, mesh)
+        self.mesh = mesh
         for name, value, allowed in (
                 ("device_huffman", device_huffman, self.STRATEGIES),
                 ("entropy", entropy, self.ENTROPY),
@@ -271,7 +293,7 @@ class JpegDecoderSession:
 
     def _check_device_entropy_route(self) -> None:
         if (self.device_entropy_parallel or self._warned_serial_entropy
-                or self._indexable()):
+                or (self._indexable() and self.mesh is None)):
             return
         self._warned_serial_entropy = True
         logging.getLogger("video_coding_tpu_torch").warning(
@@ -347,23 +369,12 @@ class JpegDecoderSession:
                          seg_blocks: torch.Tensor) -> torch.Tensor:
         """Padded (S, L) lane matrix → (S, B, 64) coefficients by the
         session's strategy."""
-        S, L = segbytes.shape
-        B = self.blocks_per_segment
-        how = self.device_huffman
         st = self.state
-        if how == "lut":
-            return huffman_decode.decode_segments_lut_plain(
-                segbytes, seg_blocks, self._comp_sched, st.luts,
-                blocks_per_segment=B, n_components=len(self.components))
-        if how == "auto":
-            how = auto_strategy(S, L, B)
-        fn = {"pallas_t": huffman_decode.decode_segments_lanes,
-              "streamed": huffman_decode.decode_segments_streamed,
-              "pallas": huffman_decode.decode_segments,
-              "range": huffman_decode.decode_segments_plain}[how]
-        return fn(segbytes, seg_blocks, self._comp_sched, st.lo, st.hi,
-                  st.offset, st.values, blocks_per_segment=B,
-                  n_components=len(self.components))
+        return huffman_decode.decode_padded(
+            self.device_huffman, segbytes, seg_blocks, self._comp_sched,
+            st.lo, st.hi, st.offset, st.values,
+            blocks_per_segment=self.blocks_per_segment,
+            n_components=len(self.components), luts=st.luts)
 
     def _decode_flat_lanes(self, flat, starts, lens, seg_blocks, seg_div: int,
                            init_bitpos=None, init_dc=None):
@@ -389,32 +400,52 @@ class JpegDecoderSession:
         return torch.where(cols < lens[:, None], flat[idx],
                            flat.new_zeros(())).contiguous()
 
-    def _decode_coefs_pool(self, parts: list, lens_parts: list):
+    def _decode_coefs_pool(self, parts: list, lens_parts: list,
+                           run: tuple[int, int] | None = None):
         """Destuffed frames (flat buffers and per-segment lengths) →
-        ((S, B, 64) coefficients in lane order, inv_perm (S,) int64) on
-        the device, S = F·n_segments."""
+        ((S', B, 64) coefficients in lane order, inv_perm (S,) int64) on
+        the device, S = F·n_segments. ``run`` = (n, r) pads the
+        length-sorted lanes with zero-length lanes (which decode nothing
+        and sort last) to a multiple of n and decodes only the r-th of n
+        contiguous runs of them, uploading that run's segment bytes only;
+        inv_perm then indexes the lanes of all n runs in order. None
+        decodes every lane."""
         F = len(parts)
         dev = self.device
         B = self.blocks_per_segment
         lens64 = np.concatenate(lens_parts)
         seg_blocks = np.tile(self._expected_seg_blocks(self.n_segments), F)
-        if self._use_padded_lanes(batched=F > 1):
+        if run is None and self._use_padded_lanes(batched=F > 1):
             lanebuf, _lens, segb, inv_perm, _L = self._padded_lane_inputs(
                 np.concatenate(parts), lens64, seg_blocks)
             coefs = self._decode_segments(_upload(lanebuf, dev),
                                           _upload(segb, dev))
             return coefs, _upload(inv_perm, dev).to(torch.int64)
-        starts, lens, segb, inv_perm = self._flat_lane_inputs(lens64,
-                                                              seg_blocks)
-        L = _lane_bucket(int(lens64.max()), 6)
+        n, r = run or (1, 0)
+        S = len(lens64)
+        pad = -S % n
+        starts, lens, segb, inv_perm = self._flat_lane_inputs(
+            np.pad(lens64, (0, pad)), np.pad(seg_blocks, (0, pad)))
+        if n > 1:
+            step = len(lens) // n
+            starts, lens, segb = (a[r * step:(r + 1) * step]
+                                  for a in (starts, lens, segb))
+            # this run's segments' bytes only, in stream order
+            by = np.argsort(starts, kind="stable")
+            packed = np.empty_like(starts)
+            packed[by] = np.cumsum(lens[by]) - lens[by]
+            idx = (np.repeat(starts[by] - packed[by], lens[by])
+                   + np.arange(int(lens.sum())))
+            parts, starts = [np.concatenate(parts)[idx]], packed
+        L = _lane_bucket(int(lens.max()), 6)
         flat, starts, lens, segb = (_upload(a, dev) for a in (
             self._join_flat(parts), starts, lens, segb))
-        if flat_words_route(len(lens64), L, B, self.device_huffman):
+        if flat_words_route(len(lens), L, B, self.device_huffman):
             coefs = self._decode_flat_lanes(flat, starts, lens, segb, B)
         else:
             coefs = self._decode_segments(
                 self._gather_lanes(flat, starts, lens, L), segb)
-        return coefs, _upload(inv_perm, dev).to(torch.int64)
+        return coefs, _upload(inv_perm[:S], dev).to(torch.int64)
 
     def _decode_device_batch_indexed(self, flats: list):
         """Indexed decode of restart-free streams: every frame's one
@@ -487,11 +518,17 @@ class JpegDecoderSession:
         j % seg_div); the inverse lane permutation folds into the plane
         gather, so stream-ordered coefficients are never materialized."""
         seg_div = seg_div or self.blocks_per_segment
-        _sched, quant_seg, plane_seg = self._seg_view(seg_div)
-        pixels = datapath.decode_datapath(coefs_pool, quant_seg)
-        ip = inv_perm.view(f, -1)
+        pixels = datapath.decode_datapath(coefs_pool,
+                                          self._seg_view(seg_div)[1])
+        return self._assemble_planes(pixels, inv_perm.view(f, -1), seg_div)
+
+    def _assemble_planes(self, pixels: torch.Tensor, ip: torch.Tensor,
+                         seg_div: int):
+        """Lane-order (·, 8, 8) pixels and the inverse lane permutation
+        of f frames, (f, segments a frame) → tuple of (f, H, W) plane
+        stacks."""
         out = []
-        for seg_i, off_i, nby, nbx in plane_seg:
+        for seg_i, off_i, nby, nbx in self._seg_view(seg_div)[2]:
             cidx = ip[:, seg_i] * seg_div + off_i
             out.append(_plane_from_blocks(pixels[cidx], nby, nbx))
         return tuple(out)
@@ -501,8 +538,14 @@ class JpegDecoderSession:
         """Entropy bytes of F frames → per-component (F, H, W) uint8 plane
         stacks (decoded, i.e. MCU-padded, sizes) on the device: all
         frames' segments are one lane pool, one Huffman decode launch and
-        one datapath launch."""
+        one datapath launch. On a mesh whose size divides F the stacks are
+        frame-sharded DTensors (see the class docstring)."""
+        return self._stacked(entropy_list, frame_sharded=True)
+
+    def _stacked(self, entropy_list: list[bytes], frame_sharded: bool):
         self._check_device_entropy_route()
+        if self.mesh is not None:
+            return self._decode_mesh(entropy_list, frame_sharded)
         parts, lens_parts = _destuff_parts(entropy_list, self.n_segments)
         if self._indexable():
             out = self._decode_device_batch_indexed(parts)
@@ -514,10 +557,30 @@ class JpegDecoderSession:
 
     decode_batch_stacked = decode_device_batch_stacked
 
+    def _decode_mesh(self, entropy_list: list[bytes], frame_sharded: bool):
+        """The mesh-sharded batch decode (class docstring): this rank
+        decodes its contiguous run of the length-sorted lanes
+        (``_decode_coefs_pool``), then K2; the pixels are gathered from
+        every rank and the planes assembled (this rank's frames only, as
+        a DTensor, when ``frame_sharded`` and the mesh size divides F)."""
+        mesh, B = self.mesh, self.blocks_per_segment
+        n, r, F = mesh.size(), mesh_index(mesh), len(entropy_list)
+        coefs, ip = self._decode_coefs_pool(
+            *_destuff_parts(entropy_list, self.n_segments), run=(n, r))
+        pixels = datapath.decode_datapath(coefs.view(-1, 64), self._quant_seg)
+        every = pixels.new_empty((n * pixels.shape[0], 8, 8))
+        dist.all_gather_into_tensor(every, pixels, group=flat_group(mesh))
+        ip = ip.view(F, -1)
+        if frame_sharded and F % n == 0:
+            k = F // n
+            return tuple(shard_rows(p, mesh) for p in self._assemble_planes(
+                every, ip[r * k:(r + 1) * k], B))
+        return self._assemble_planes(every, ip, B)
+
     def decode_device_batch(self, entropy_list: list[bytes]):
         """Like decode_device_batch_stacked, as a list of per-frame plane
-        tuples (device tensors)."""
-        planes = self.decode_device_batch_stacked(entropy_list)
+        tuples (device tensors, the same on every rank of a mesh)."""
+        planes = self._stacked(entropy_list, frame_sharded=False)
         return [tuple(p[i] for p in planes)
                 for i in range(len(entropy_list))]
 
@@ -526,9 +589,11 @@ class JpegDecoderSession:
         """Pipelined batched decode for device-resident consumers: chunks
         of ``batch`` frames each decode as one dispatch with ``depth``
         chunks in flight, so chunk i+1's host prep and upload overlap
-        chunk i's device work. Yields per-chunk stacked plane tuples."""
+        chunk i's device work (one chunk at a time on a mesh). Yields
+        per-chunk stacked plane tuples."""
         return _pipelined_map(self.decode_device_batch_stacked,
-                              _chunked(entropy_iter, batch), depth)
+                              _chunked(entropy_iter, batch),
+                              _mesh_depth(self.mesh, depth))
 
     def decode_device_e2e(self, entropy_data: bytes):
         """Raw entropy bytes of one frame → decoded (MCU-padded) planes on
@@ -536,7 +601,7 @@ class JpegDecoderSession:
         planes come back. A single frame uploads the padded lane matrix;
         a restart-free frame takes the indexed route."""
         return tuple(p[0] for p in
-                     self.decode_device_batch_stacked([entropy_data]))
+                     self._stacked([entropy_data], frame_sharded=False))
 
     def decode_device(self, entropy_data: bytes) -> Frame | list[Plane]:
         """One frame → a ``Frame`` of its planes cropped to the frame's
@@ -592,7 +657,8 @@ class JpegDecoderSession:
         one Huffman decode launch and one K2 launch for all frames, then the
         RGB tail on the (F, H, W) plane stacks."""
         self._check_rgb()
-        return self._rgb_tail(self.decode_device_batch_stacked(entropy_list))
+        return self._rgb_tail(self._stacked(entropy_list,
+                                            frame_sharded=False))
 
     def _to_frame(self, planes_dev) -> Frame | list[Plane]:
         planes = [Plane(data=np.ascontiguousarray(
@@ -722,7 +788,17 @@ class JpegEncoderSession:
     gather packer on the session's device). ``coef_transfer`` is the
     download: ``"dense"`` (int16), ``"sparse"`` (occupancy bitmask +
     packed nonzeros, dense when the value budget overflows) or ``"auto"``
-    (sparse on a GPU)."""
+    (sparse on a GPU).
+
+    ``mesh`` (a ``DeviceMesh`` from ``parallel.codec_mesh``) shards
+    ``encode_device*`` over its ranks: the restart segments of every frame
+    are padded to a multiple of the mesh size, each rank runs K3 and the
+    routed packer on its contiguous run of segments, the segment lengths
+    are exchanged with ``all_gather_into_tensor``, each rank writes its
+    segments and their RSTn markers at their places in the wire buffer,
+    and an ``all_reduce(SUM)`` joins the disjoint buffers (the overflow
+    flag is reduced with MAX). Every rank gets the bytes the unsharded
+    session gives. The host-entropy route does not shard."""
 
     ENTROPY = ("native", "python", "tpu")
     COEF_TRANSFER = ("auto", "dense", "sparse")
@@ -730,8 +806,10 @@ class JpegEncoderSession:
 
     def __init__(self, params: Parameters, restart_interval: int = 0,
                  device=None, entropy: str = "native",
-                 coef_transfer: str = "auto", device_pack: str = "auto"):
-        self.device = resolve_device(device)
+                 coef_transfer: str = "auto", device_pack: str = "auto",
+                 mesh=None):
+        self.device = _session_device(device, mesh)
+        self.mesh = mesh
         for name, value, allowed in (
                 ("entropy", entropy, self.ENTROPY),
                 ("coef_transfer", coef_transfer, self.COEF_TRANSFER),
@@ -809,6 +887,7 @@ class JpegEncoderSession:
         self._comp_sched = state.comp_idx[:self.blocks_per_segment] \
             .contiguous()
         self._valid = {}
+        self._local = {}     # f → this mesh rank's block gather (K3 run)
 
     # -- planes → quantized coefficients ------------------------------------
     def load_planes(self, frame) -> list[np.ndarray]:
@@ -848,10 +927,12 @@ class JpegEncoderSession:
     # -- entropy encode + wire assembly -------------------------------------
     def _enc_geometry(self, max_seg_bytes: int):
         """(B, n_blocks, n_seg, sp, n_padded, m_out, cap) for a raw
-        per-segment byte budget; cap is the worst-case wire size."""
+        per-segment byte budget: sp is a frame's segments padded to a
+        multiple of the mesh size, cap the worst-case wire size."""
         B = self.blocks_per_segment
         n_seg = (self.n_blocks + B - 1) // B
-        sp = n_seg
+        n_dev = _mesh_size(self.mesh)
+        sp = -(-n_seg // n_dev) * n_dev
         m_out = m_out_for(max_seg_bytes)
         return B, self.n_blocks, n_seg, sp, sp * B, m_out, sp * m_out + 2 * sp
 
@@ -878,32 +959,81 @@ class JpegEncoderSession:
             return "gather"
         return "fused" if B <= pack_stuff.FUSED_MAX_BLOCKS else "split"
 
-    def _pack_graph(self, qc_seg: torch.Tensor, f: int, max_seg_bytes: int):
-        """(f·sp, B·64) int32 coefficients → (bufs (f, cap) uint8, totals
-        (f,), max segment length, overflow) — the routed entropy encode
-        then the wire assembly (the single-device form of the reference's
-        _pack_graph)."""
+    def _pack_graph(self, qc_seg: torch.Tensor, f: int, max_seg_bytes: int,
+                    first: int = 0):
+        """(S, B·64) int32 coefficients of the segments ``first`` ..
+        ``first + S`` of f·sp → (bufs (f, cap) uint8, totals (f,), max
+        segment length, overflow) — the routed entropy encode then the
+        wire assembly (the reference's _pack_graph). On a mesh, S is this
+        rank's run and the lengths, buffers and overflow flag are joined
+        over the mesh."""
         B, n_blocks, n_seg, sp, n_padded, m_out, cap = self._enc_geometry(
             max_seg_bytes)
-        route = self._pack_route(qc_seg.shape[0], max_seg_bytes)
+        S = qc_seg.shape[0]
+        valid = self._valid_batch(f)[first:first + S]
+        route = self._pack_route(S, max_seg_bytes)
         if route == "fused":
             out, lens, overflow = encode_segments(
-                qc_seg, self._valid_batch(f), self._comp_sched,
-                self.state.dctab, self.state.actab, m_out=m_out)
+                qc_seg, valid, self._comp_sched, self.state.dctab,
+                self.state.actab, m_out=m_out)
         else:
             fn = (pack_stuff.encode_segments_split if route == "split"
                   else gather_pack.encode_segments_device)
             st = self.state
             out, lens, overflow = fn(
-                qc_seg.view(-1, 64), self._comp_sched.repeat(f * sp),
+                qc_seg.view(-1, 64), self._comp_sched.repeat(S),
                 st.prev_same_comp, st.dctab, st.actab, blocks_per_segment=B,
                 max_seg_bytes=max_seg_bytes,
-                valid=(self._valid_batch(f).view(-1)
-                       if n_padded != n_blocks else None))
+                valid=valid.reshape(-1) if n_padded != n_blocks else None)
+        lens_all = lens
+        if self.mesh is not None:
+            group = flat_group(self.mesh)
+            lens_all = torch.empty(f * sp, dtype=lens.dtype,
+                                   device=lens.device)
+            dist.all_gather_into_tensor(lens_all, lens.contiguous(),
+                                        group=group)
+            overflow = overflow.to(torch.int32).view(1)
+            dist.all_reduce(overflow, op=dist.ReduceOp.MAX, group=group)
+            overflow = overflow[0] != 0
         bufs, totals = assemble_frames(out, lens, frames=f, n_seg=n_seg,
-                                       cap=cap)
-        max_len = lens.view(f, sp)[:, :n_seg].max()
+                                       cap=cap, lens_all=lens_all,
+                                       first=first)
+        if self.mesh is not None:
+            dist.all_reduce(bufs, group=group)
+        max_len = lens_all.view(f, sp)[:, :n_seg].max()
         return bufs, totals, max_len, overflow
+
+    def _encode_qc_local(self, stacked) -> tuple[torch.Tensor, int]:
+        """Per-scan (f, H, W) uint8 stacks → (this rank's contiguous run of
+        the f·sp padded segments as (S, B·64) int32, its first segment):
+        K3 on the run's real blocks only, zero coefficients in the padding
+        (as ``_pad_segments`` gives)."""
+        f = stacked[0].shape[0]
+        B, n_blocks, _n, sp, n_padded, _m, _c = self._enc_geometry(0)
+        step = f * sp // self.mesh.size()
+        first = mesh_index(self.mesh) * step
+        if f not in self._local:
+            pos = np.arange(first * B, (first + step) * B)
+            k = pos % n_padded
+            real = k < n_blocks
+            total = sum(nby * nbx for nby, nbx in self.state.plane_dims)
+            src = (pos // n_padded) * total + self.perm[np.minimum(
+                k, n_blocks - 1)]
+            self._local[f] = tuple(
+                _upload(a, self.device).to(torch.int64) for a in
+                (src[real], k[real], np.flatnonzero(real)))
+        src, qrow, dst = self._local[f]
+        out = torch.zeros((step * B, 64), dtype=torch.int32,
+                          device=self.device)
+        if not dst.numel():          # a run of padding segments only
+            return out.view(step, B * 64), first
+        blocks = torch.cat([_blocks_from_plane(p, nby, nbx)
+                            for p, (nby, nbx) in zip(stacked,
+                                                     self.state.plane_dims)],
+                           dim=1).reshape(-1, 8, 8)
+        out[dst] = datapath.encode_datapath(
+            blocks[src], self.state.quant[qrow].contiguous())
+        return out.view(step, B * 64), first
 
     def _pad_segments(self, qc: torch.Tensor, f: int) -> torch.Tensor:
         """(f·n_blocks, 64) → (f·sp, B·64), zero blocks past n_blocks."""
@@ -978,9 +1108,13 @@ class JpegEncoderSession:
 
     def _encode_stacked(self, stacked) -> list[bytes]:
         f = stacked[0].shape[0]
-        qc_seg = self._pad_segments(self._encode_qc_batch(stacked), f)
+        if self.mesh is None:
+            qc_seg = self._pad_segments(self._encode_qc_batch(stacked), f)
+            first = 0
+        else:
+            qc_seg, first = self._encode_qc_local(stacked)
         bodies = self._run_enc_ladder_batch(
-            lambda msb: self._pack_graph(qc_seg, f, msb), f)
+            lambda msb: self._pack_graph(qc_seg, f, msb, first), f)
         hdr = self._header_bytes
         return [b"".join((hdr, body, _EOI)) for body in bodies]
 
@@ -1129,14 +1263,18 @@ class JpegTranscodeSession:
     ``"device"`` on every device. (The reference picks ``"host"`` off its
     accelerator only because its threaded C++ coder beats its simulated
     device packer on a CPU; the port has no C++ coder.) Both give the same
-    bytes."""
+    bytes.
+
+    ``mesh`` goes to both halves (see the sessions' ``mesh``): the decode
+    is sharded and gathered, then the encode sharded and joined — two
+    steps, as the reference takes with a mesh."""
 
     ENTROPY_OUT = ("auto", "device", "host")
 
     def __init__(self, header: Header, quality: int = 75,
                  restart_interval: int = 0, device=None,
-                 entropy_out: str = "auto"):
-        self.device = resolve_device(device)
+                 entropy_out: str = "auto", mesh=None):
+        self.device = _session_device(device, mesh)
         if entropy_out not in self.ENTROPY_OUT:
             raise ValueError(f"entropy_out must be one of {self.ENTROPY_OUT}"
                              f", got {entropy_out!r}")
@@ -1144,11 +1282,12 @@ class JpegTranscodeSession:
         frame_hdr = header.frame
         if frame_hdr is None or len(frame_hdr.components) != 3:
             raise DecodeError("transcode supports 3-component scans")
-        self.decoder = JpegDecoderSession(header, device=self.device)
+        self.decoder = JpegDecoderSession(header, device=self.device,
+                                          mesh=mesh)
         maker = _parameters_maker(frame_hdr)
         params = maker(frame_hdr.width, frame_hdr.height, quality)
         self.encoder = JpegEncoderSession(params, restart_interval,
-                                          device=self.device)
+                                          device=self.device, mesh=mesh)
         for comp, scan in zip(self.decoder.components, self.encoder.scans):
             if (comp.decoded_height, comp.decoded_width) != \
                     (scan.height, scan.width):
@@ -1177,7 +1316,7 @@ class JpegTranscodeSession:
         (``entropy_out="host"``) one download and the host coder per
         frame."""
         cleaned = self._clean_planes(
-            self.decoder.decode_device_batch_stacked(entropy_list))
+            self.decoder._stacked(entropy_list, frame_sharded=False))
         enc = self.encoder
         if self.entropy_out == "host":
             return enc._entropy_frames(enc._quantize_stacked(cleaned))
@@ -1186,17 +1325,20 @@ class JpegTranscodeSession:
     def transcode_iter(self, entropy_iter, depth: int = 2):
         """Pipelined streaming transcode: an ordered generator of JPEG
         byte strings with up to ``depth`` frames in flight — frame i's
-        host work overlaps frame i+1's device work."""
-        return _pipelined_map(self.transcode, entropy_iter, depth)
+        host work overlaps frame i+1's device work (one frame at a time on
+        a mesh)."""
+        return _pipelined_map(self.transcode, entropy_iter,
+                              _mesh_depth(self.decoder.mesh, depth))
 
     def transcode_batch_iter(self, entropy_iter, batch: int = 8,
                              depth: int = 2):
         """Pipelined batched transcode: chunks of ``batch`` frames each run
         as one transcode_batch, with up to ``depth`` chunks in flight so
         chunk i's host prep and fetch overlap chunk i+1's device work.
-        Yields frames in order."""
+        Yields frames in order (one chunk at a time on a mesh)."""
         for outs in _pipelined_map(self.transcode_batch,
-                                   _chunked(entropy_iter, batch), depth):
+                                   _chunked(entropy_iter, batch),
+                                   _mesh_depth(self.decoder.mesh, depth)):
             yield from outs
 
 
