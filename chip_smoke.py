@@ -4,7 +4,8 @@
   restart interval 1, 16 frames a dispatch) through the hand-written CUDA
   kernels K1-K4;
 - the device decode service on four kinds of 1080p 4:2:0 q90 stream:
-    A  restart-free, 16 frames: host index scan, K1 with start-state hooks;
+    A  restart-free, 16 frames: the host engine's index scan, K1 with
+       start-state hooks;
     B  one MCU row a segment (ri=120), 16 frames: K6, the streamed decode;
     C  ri=1, one frame, device_huffman="pallas": K5 on the padded matrix;
     D  ri=1, 16 frames, decode_gather="dma": K7, the staged decode;
@@ -15,12 +16,12 @@
     F  the ri=1 sources transcoded to ri=8: K1 → K2 → K3 → K9 → K8;
   and the session's host-entropy route, encode(), on one frame;
 - the decoder session's host-entropy half and the transcode's host route:
-    G  decode() by the host decoder (pure Python) with a dense or sparse
-       coefficient upload, then K2; entropy="tpu" (the padded matrix
-       decoded on the card: K1, K6 or K5 by stream shape, or K5 asked
-       for), decode_batch, decode_iter, resync, decode_jpeg;
+    G  decode() by the host decoder (the host entropy engine) with a
+       dense or sparse coefficient upload, then K2; entropy="tpu" (the
+       padded matrix decoded on the card: K1, K6 or K5 by stream shape,
+       or K5 asked for), decode_batch, decode_iter, resync, decode_jpeg;
     H  transcode_batch with entropy_out="host": K1 → K2 → K3, the
-       download, the host coder;
+       download, the host coder (the engine);
 - the decode-for-training path:
     I  decode_device_rgb(_batch): K1 → K2 → the RGB tail (chroma
        upsampling and color conversion in plain torch) on the card, and
@@ -31,14 +32,18 @@
        dataset's sharding, the sharded datapaths (K2, K3),
        sharded_decode_e2e (K5 → K2) and mjpeg_codec_step (K3, K9, K2);
     K  the five CLIs' main(argv) on a 1080p frame: model_cli,
-       simulate_cli, generate_cli (PTX and SASS), oyuv, dct_tool.
+       simulate_cli, generate_cli (PTX and SASS), oyuv, dct_tool;
+- the host entropy engine (the C++ library built with g++ from
+  video_coding_tpu_torch/csrc/host_entropy.cpp, which the host halves of
+  the paths above run) against the port's pure Python / numpy tier.
 
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a nonzero exit):
   1. card      — name and power limit (nvidia-smi);
   2. build     — nvcc builds K1-K9 and the decode lookup table (LUT) from
-                 video_coding_tpu_torch/csrc;
+                 video_coding_tpu_torch/csrc, and g++ the host entropy
+                 engine from csrc/host_entropy.cpp (build seconds each);
   3. sources   — 16 synthetic 1080p frames encoded on the card at q90 with
                  ri=1, ri=0 and ri=120; one frame of each decoded back and
                  checked by PSNR;
@@ -90,7 +95,7 @@ Phases (any failure ends the run with a nonzero exit):
                  back; path C's longest lane in symbols;
   8. rates     — frames a second of decode_device_batch_iter on A and B
                  (median of 3 windows), one path B dispatch under the
-                 profiler, and the host index scan's time;
+                 profiler, and the host engine's index scan time;
   9. path E    — one warming dispatch, then encode_device_batch with the
                  counts reset before and read after: K3, K9 and K8 once
                  each, K4 never; bytes equal to the same session on the CPU
@@ -101,9 +106,10 @@ Phases (any failure ends the run with a nonzero exit):
  10. path F    — transcode_batch to ri=8 with the counts reset and read:
                  K1, K2, K3, K9, K8; bytes equal to the CPU session's for 2
                  frames; transcode_batch_iter MPix/s beside phase 5's;
- 11. host route — encode() of one frame with entropy="python" and "tpu",
-                 coef_transfer="sparse" and "dense": path E's bytes; the
-                 host coder's time (pure Python: seconds a frame);
+ 11. host route — encode() of one frame with entropy="native", "python"
+                 and "tpu", coef_transfer="sparse" and "dense": path E's
+                 bytes; the host coders' times (the engine; pure Python:
+                 seconds a frame);
  12. encode kernels — K8 and K9 on the arguments path E gave them, against
                  their plain versions (exact), K9 also beside table[idx];
                  the share of K8's slots that hold bits; K8's bound
@@ -180,9 +186,21 @@ Phases (any failure ends the run with a nonzero exit):
                  and each kernel's .entry, then --compiled SASS); oyuv
                  compare and convert; dct both; the card subcommands'
                  launch counts; wall seconds each;
- 17. a JSON line of per-kernel numbers (with each kernel's launches on the
+ 17. host engine — its ABI and build seconds; on the phase 3 sources
+                 (16 frames, and the ri=0 copies for the index scan) every
+                 entry point held exactly against use_native=False:
+                 destuff_flat, destuff_segments_with_markers and
+                 pack_lanes_sorted on all frames, index_scan, decode_scan
+                 and encode_scan / encode_scan_stream (int32 and int16,
+                 assembled by vct_assemble_stream) with the Python tier on
+                 frame 0, destuff_and_decode_scan against decode_scan,
+                 decode_scan_resync on phase 13's three damaged copies;
+                 the re-encoded bodies equal to the sources; ms a frame of
+                 each tier beside nvidia-smi's name and power limit and the
+                 host's lscpu model name and os.cpu_count();
+ 18. a JSON line of per-kernel numbers (with each kernel's launches on the
      own paths A-K);
- 18. a last JSON line {"ok": true, "device": {...}}.
+ 19. a last JSON line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the reference package. Needs one
 CUDA card; exits nonzero without one.
@@ -956,6 +974,179 @@ def restuffed(segments: list, terminators: list) -> bytes:
     return bytes(out + b"\xff\xd9")
 
 
+def damaged_copies(payload: bytes) -> dict:
+    """Three damaged copies of an ri=1 entropy body, by name: (bytes, a
+    test of the damaged segments resync must report). Segment 100 set to
+    0xFF, RST marker 200 removed, the stream cut at 60% (100 and 200 at
+    1080p, fewer on a small frame)."""
+    from video_coding_tpu_torch.entropy import scan as hscan
+
+    segs = hscan.destuff_segments(payload)
+    S = len(segs)
+    k_bad, k_rst = min(100, S // 3), min(200, S // 2)
+    term = [i & 7 for i in range(S - 1)]
+    dropped = list(term)
+    dropped[k_rst] = None
+    cut = payload[:int(0.6 * len(payload))]
+    n_whole = len(hscan.destuff_segments(cut)) - 1
+    return {
+        f"segment {k_bad} set to 0xFF": (
+            restuffed(segs[:k_bad] + [b"\xff" * len(segs[k_bad])]
+                      + segs[k_bad + 1:], term), lambda d: d == [k_bad]),
+        f"RST marker {k_rst} removed": (restuffed(segs, dropped),
+                                        lambda d: d == []),
+        "cut at 60%": (cut, lambda d: d in (list(range(n_whole, S)),
+                                            list(range(n_whole + 1, S)))),
+    }
+
+
+def host_engine_checks(sources, src_enc, smi, build_s: float) -> None:
+    """Phase 17: the host entropy engine (``entropy/native.py``, the C++
+    library built from ``csrc/host_entropy.cpp``) held exactly against the
+    port's pure Python / numpy tier (``use_native=False``) on the phase 3
+    sources, every entry point; ms a frame of each tier beside the card
+    and the host CPU. The pure Python tier runs on frame 0 only."""
+    import os
+
+    from video_coding_tpu_torch.entropy import native
+    from video_coding_tpu_torch.entropy import scan as hscan
+    from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
+                                                       _lane_bucket)
+
+    t_phase = time.perf_counter()
+    log(f"host engine: {native.library_path().name}, ABI "
+        f"{native.load().vct_version()}, built by g++ in {build_s:.2f} s "
+        "(phase 2)")
+    cpu = "unknown"
+    for cmd in (["lscpu"], ["cat", "/proc/cpuinfo"]):
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True).stdout
+        except OSError:
+            continue
+        names = [line.split(":", 1)[1].strip() for line in out.splitlines()
+                 if line.lower().startswith("model name")]
+        if names:
+            cpu = f"{names[0]} ({cmd[-1]})"
+            break
+    host = f"host CPU {cpu}, os.cpu_count() {os.cpu_count()}"
+    header, payloads = sources["ri=1"]
+    F = len(payloads)
+    dec = JpegDecoderSession(header)
+    ci, B, tabs = dec.comp_idx, dec.blocks_per_segment, dec.tables
+    summary = []
+
+    def tiers(name, engine, plain, equal, n_plain=1):
+        """engine(i) on every frame, plain(i) on the first n_plain; equal
+        results on those, or the run fails. Returns the engine's
+        results."""
+        t0 = time.perf_counter()
+        got = [engine(i) for i in range(F)]
+        e_ms = (time.perf_counter() - t0) * 1e3 / F
+        t0 = time.perf_counter()
+        ref = [plain(i) for i in range(n_plain)]
+        p_ms = (time.perf_counter() - t0) * 1e3 / n_plain
+        for i in range(n_plain):
+            if not equal(got[i], ref[i]):
+                raise RuntimeError(f"host engine {name}: frame {i} differs "
+                                   "from the Python tier")
+        summary.append((name, e_ms, p_ms, n_plain))
+        log(f"host engine {name}: {e_ms:.3f} ms a frame ({F} frames), "
+            f"Python tier {p_ms:.1f} ms a frame ({n_plain} frame(s)); equal")
+        return got
+
+    def arrays_equal(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    flats = tiers("destuff_flat",
+                  lambda i: hscan.destuff_flat(payloads[i]),
+                  lambda i: hscan.destuff_flat(payloads[i], use_native=False),
+                  arrays_equal, F)
+    segs = tiers("destuff_segments_with_markers",
+                 lambda i: hscan.destuff_segments_with_markers(payloads[i]),
+                 lambda i: hscan.destuff_segments_with_markers(
+                     payloads[i], use_native=False), lambda a, b: a == b)
+
+    def lanes(i, use_native=None):
+        flat, lens = flats[i]
+        order = np.argsort(-lens, kind="stable")
+        return hscan.pack_lanes_sorted(flat, lens, order,
+                                       _lane_bucket(int(lens.max()), 5),
+                                       use_native=use_native)
+
+    tiers("pack_lanes_sorted", lanes, lambda i: lanes(i, False),
+          np.array_equal, F)
+    hdr_a, pay_a = sources["ri=0"]
+    dec_a = JpegDecoderSession(hdr_a)
+    stride = dec_a._index_stride()
+    flats_a = [hscan.destuff_flat(p)[0] for p in pay_a]
+    tiers("index_scan (ri=0)",
+          lambda i: hscan.index_scan(flats_a[i], dec_a.comp_idx, stride,
+                                     dec_a.tables),
+          lambda i: hscan.index_scan(flats_a[i], dec_a.comp_idx, stride,
+                                     dec_a.tables, use_native=False),
+          arrays_equal)
+    coefs = tiers("decode_scan",
+                  lambda i: hscan.decode_scan(segs[i][0], ci, B, tabs),
+                  lambda i: hscan.decode_scan(segs[i][0], ci, B, tabs,
+                                              use_native=False),
+                  np.array_equal)
+    t0 = time.perf_counter()
+    fused = [hscan.destuff_and_decode_scan(p, ci, B, tabs) for p in payloads]
+    e_ms = (time.perf_counter() - t0) * 1e3 / F
+    if not arrays_equal(fused, coefs):
+        raise RuntimeError("host engine destuff_and_decode_scan differs from "
+                           "decode_scan")
+    summary.append(("destuff_and_decode_scan", e_ms, None, 0))
+    log(f"host engine destuff_and_decode_scan: {e_ms:.3f} ms a frame ({F} "
+        "frames), equal to decode_scan (held against the Python tier above)")
+    for name, (data, expect) in damaged_copies(payloads[0]).items():
+        seg_d, marks = hscan.destuff_segments_with_markers(data)
+        if (seg_d, marks) != hscan.destuff_segments_with_markers(
+                data, use_native=False):
+            raise RuntimeError(f"host engine destuff of {name} differs")
+        t0 = time.perf_counter()
+        got = hscan.decode_scan_resync(seg_d, ci, B, tabs,
+                                       marker_indices=marks)
+        e_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref = hscan.decode_scan_resync(seg_d, ci, B, tabs, use_native=False,
+                                       marker_indices=marks)
+        p_ms = (time.perf_counter() - t0) * 1e3
+        if not (np.array_equal(got[0], ref[0]) and got[1] == ref[1]
+                and expect(got[1])):
+            raise RuntimeError(f"host engine resync of {name} differs from "
+                               "the Python tier")
+        summary.append((f"decode_scan_resync ({name})", e_ms, p_ms, 1))
+        log(f"host engine decode_scan_resync, {name}: {e_ms:.3f} ms, Python "
+            f"tier {p_ms:.1f} ms; {len(got[1])} damaged segments, equal")
+    etabs = src_enc.tables
+    for dtype in (np.int32, np.int16):
+        tag = np.dtype(dtype).name
+        tiers(f"encode_scan ({tag})",
+              lambda i: hscan.encode_scan(coefs[i].astype(dtype), ci, B,
+                                          etabs),
+              lambda i: hscan.encode_scan(coefs[i].astype(dtype), ci, B,
+                                          etabs, use_native=False),
+              lambda a, b: a == b)
+        bodies = tiers(
+            f"encode_scan_stream ({tag}, with vct_assemble_stream)",
+            lambda i: hscan.encode_scan_stream(coefs[i].astype(dtype), ci, B,
+                                               etabs),
+            lambda i: hscan.encode_scan_stream(coefs[i].astype(dtype), ci, B,
+                                               etabs, use_native=False),
+            lambda a, b: a == b)
+        if any(b + b"\xff\xd9" != p for b, p in zip(bodies, payloads)):
+            raise RuntimeError(f"host engine encode_scan_stream ({tag}) of "
+                               "the decoded coefficients is not the source "
+                               "body")
+    log(f"host engine: the {F} re-encoded bodies are the sources' bytes")
+    log("host engine summary (ms a frame, engine / Python tier): "
+        + "; ".join(f"{n} {e:.3f} / " + ("-" if p is None else f"{p:.1f}")
+                    for n, e, p, _k in summary)
+        + f" — on {smi}; {host}; phase 17 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def host_entropy_paths(sources, file0, trans, counted, compare, smi,
                        path_launches) -> None:
     """Phase 13: the decoder session's host-entropy half (path G) and the
@@ -1025,8 +1216,9 @@ def host_entropy_paths(sources, file0, trans, counted, compare, smi,
         up_ms = wall_ms(lambda: sess.decode_planes_device(coefs1), 5)
         log(f"path G host decode ri=1 frame 0, coef_transfer={transfer}: "
             f"launches {seen}; the host decoder {host_ms:.1f} ms a frame "
-            f"(pure Python), upload + K2 + plane gather {up_ms:.3f} ms "
-            f"(median of 5), decode() {wall:.1f} ms wall; equal to "
+            f"(the host entropy engine), upload + K2 + plane gather "
+            f"{up_ms:.3f} ms (median of 5), decode() {wall:.1f} ms wall; "
+            f"equal to "
             f"decode_device() and to device='cpu' on {smi}")
 
     # G, entropy="tpu": the strategy's kernel and K2 once each, no plain
@@ -1137,23 +1329,7 @@ def host_entropy_paths(sources, file0, trans, counted, compare, smi,
 
     # G, resync on three damaged copies of frame 0 (ri=1): decoded once on
     # the card; the CPU session's planes from the same coefficients
-    segs = hscan.destuff_segments(payloads[0])
-    S = len(segs)
-    k_bad, k_rst = min(100, S // 3), min(200, S // 2)   # 100, 200 at 1080p
-    term = [i & 7 for i in range(S - 1)]
-    dropped = list(term)
-    dropped[k_rst] = None
-    cut = payloads[0][:int(0.6 * len(payloads[0]))]
-    n_whole = len(hscan.destuff_segments(cut)) - 1
-    copies = {
-        f"segment {k_bad} set to 0xFF": (
-            restuffed(segs[:k_bad] + [b"\xff" * len(segs[k_bad])]
-                      + segs[k_bad + 1:], term), lambda d: d == [k_bad]),
-        f"RST marker {k_rst} removed": (restuffed(segs, dropped),
-                                        lambda d: d == []),
-        "cut at 60%": (cut, lambda d: d in (list(range(n_whole, S)),
-                                            list(range(n_whole + 1, S)))),
-    }
+    copies = damaged_copies(payloads[0])
     gpu = JpegDecoderSession(header)
     cpu = JpegDecoderSession(header, device="cpu")
     for name, (data, expect) in copies.items():
@@ -1173,7 +1349,7 @@ def host_entropy_paths(sources, file0, trans, counted, compare, smi,
         log(f"path G resync, {name}: damaged segments {shown}, "
             f"{ms:.0f} ms; planes equal to device='cpu'")
     try:
-        gpu.decode(copies[f"segment {k_bad} set to 0xFF"][0])
+        gpu.decode(next(iter(copies.values()))[0])    # segment set to 0xFF
     except hscan.SegmentDecodeError as e:
         log(f"strict decode() of the damaged copy raised: {e}")
     else:
@@ -1202,7 +1378,7 @@ def host_entropy_paths(sources, file0, trans, counted, compare, smi,
             raise RuntimeError("path H output does not parse")
     log(f"path H transcode_batch entropy_out=host, 2 frames q75 ri=1: "
         f"launches {seen}; the device route's bytes; {ms:.1f} ms a frame "
-        f"(host coder, pure Python) on {smi}")
+        f"(host coder: the host entropy engine) on {smi}")
     order = [1, 0, 3, 2]
     got = list(host.transcode_iter([payloads[i] for i in order], depth=2))
     ref = trans.transcode_batch(payloads[:4])
@@ -1400,7 +1576,7 @@ def rgb_training_path(sources, frames, streams, counted, smi,
         f"drop_remainder: 2 batches; a sharding other than a mesh raises "
         f"TypeError (path J runs sharding=mesh)")
 
-    # mjpeg: encode_stream (the host coder, pure Python) of 2 frames, and
+    # mjpeg: encode_stream (the host coder: the engine) of 2 frames, and
     # decode_stream of them through an entropy="tpu" session
     t0 = time.perf_counter()
     two = [Frame(Plane(data=y), Plane(data=u), Plane(data=v),
@@ -1764,6 +1940,7 @@ def main() -> int:
     from video_coding_tpu_torch.common.plane import Plane
     from video_coding_tpu_torch.entropy import gather_pack, symbols
     from video_coding_tpu_torch.entropy import huffman_decode as k1
+    from video_coding_tpu_torch.entropy import native
     from video_coding_tpu_torch.entropy import scan as hscan
     from video_coding_tpu_torch.entropy import huffman_encode as k4
     from video_coding_tpu_torch.entropy import pack_stuff as k8
@@ -1793,6 +1970,12 @@ def main() -> int:
     for line in (kernels.BUILD_DIR / "build.log").read_text().splitlines():
         if "registers" in line or line.startswith("=="):
             log("  " + line.strip())
+    t0 = time.perf_counter()
+    host_lib = native.build()
+    native.load()
+    host_build_s = time.perf_counter() - t0
+    log(f"build: host entropy engine (g++) {host_build_s:.2f} s -> "
+        f"{host_lib.name}")
 
     # 3. source streams
     t0 = time.perf_counter()
@@ -2266,8 +2449,8 @@ def main() -> int:
     torch.cuda.synchronize()
     wall_a = time.perf_counter() - t0
     log(f"index_scan of one {WIDTH}x{HEIGHT} q90 frame alone: "
-        f"{scan_s * 1e3:.1f} ms on the host; one path A dispatch of "
-        f"{FRAMES} frames: {wall_a:.2f} s wall on {smi}")
+        f"{scan_s * 1e3:.1f} ms on the host (the engine); one path A "
+        f"dispatch of {FRAMES} frames: {wall_a:.2f} s wall on {smi}")
 
     # 9. path E: the encoder session's split entropy path. Spies keep the
     # arguments the session gave K9 and K8, for phase 12.
@@ -2385,9 +2568,9 @@ def main() -> int:
     breakdown("transcode_batch (path F)",
               lambda: trans_f.transcode_batch(payloads))
 
-    # 11. the host-entropy route on one frame (the host coder is pure
-    # Python: seconds a 1080p frame)
-    for entropy in ("python", "tpu"):
+    # 11. the host-entropy route on one frame: the host entropy engine,
+    # the pure Python coder (seconds a 1080p frame) and the gather packer
+    for entropy in ("native", "python", "tpu"):
         for transfer in ("sparse", "dense"):
             host = JpegEncoderSession(params_e, RI_E, entropy=entropy,
                                       coef_transfer=transfer)
@@ -2475,7 +2658,10 @@ def main() -> int:
     # 16. path K: the CLIs
     cli_paths(frames, streams, counted, smi, path_launches)
 
-    # 17. kernels line, 18. last line
+    # 17. the host entropy engine against its Python tier
+    host_engine_checks(sources, src_enc, smi, host_build_s)
+
+    # 18. kernels line, 19. last line
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name],

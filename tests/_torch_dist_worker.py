@@ -20,9 +20,10 @@ import numpy as np
 # the sharded sessions' cases: (width, height, restart interval,
 # device_pack); 91 segments of 208x112 do not divide 2 or 4 ranks, ri=4
 # leaves a short last segment, ri=6 (36 blocks a segment) takes the split
-# packer
+# packer, and 32x16 at ri=3 is one segment shorter than its interval
 SESSION_CASES = ((192, 128, 1, "auto"), (208, 112, 1, "auto"),
-                 (208, 112, 4, "pallas"), (208, 112, 6, "pallas"))
+                 (208, 112, 4, "pallas"), (208, 112, 6, "pallas"),
+                 (32, 16, 3, "pallas"))
 QUALITY = 75
 TRANSCODE_QUALITY = 50
 DATASET_FRAMES = 5

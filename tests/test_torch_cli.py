@@ -158,15 +158,17 @@ def test_simulate_encoder_accelerator(files, capsys, chroma, ri):
 
 
 def test_simulate_filter_stuffed_bytes(files, capsys):
-    # host-only numpy in the port: no --device, as in the JAX package
+    # host-only in the port: no --device, as in the JAX package
     argv = ["filter-stuffed-bytes", files["jpg1"], "--count", "40"]
     j, t = (_run(main, argv, capsys)
             for main in (j_simulate.main, t_simulate.main))
     with pytest.raises(SystemExit):
         _run(t_simulate.main, argv + ["--device", "cpu"], capsys)
-    # the JAX package compares its C++ destuffer, the port its numpy one
-    assert t[1] == j[1].replace("native == model", "numpy == model")
-    assert t[0] == j[0] == 0 and "40/40 match" in t[1]
+    # both compare their C++ engine's destuffer with the model extractor
+    # and with their Python tier
+    assert t == j
+    assert t[0] == 0 and "native == model: True" in t[1]
+    assert "40/40 match" in t[1]
 
 
 def test_simulate_inspect(files, capsys, monkeypatch):

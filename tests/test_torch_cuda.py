@@ -973,3 +973,54 @@ def test_simulate_codeblock_launches_k1(gpu, tmp_path, capsys):
                               "tpu"]) == 0
     assert "0 mismatched" in capsys.readouterr().out
     assert huffman_decode.decode_flat.launches == 1
+
+
+@pytest.mark.parametrize("sub,w,h,ri", [("420", 16, 16, 2), ("420", 16, 16, 5),
+                                        ("420", 8, 9, 2), ("420", 32, 16, 3),
+                                        ("444", 8, 8, 2)])
+def test_restart_interval_longer_than_the_frame_on_card(gpu, sub, w, h, ri):
+    """One segment, shorter than the interval's B blocks: the device
+    decode routes (K5 or K1 on one lane; K2), decode(entropy="tpu"),
+    both transcode routes and encode_device(_batch) under every
+    device_pack on the card equal the CPU sessions and the golden
+    model's bytes."""
+    from video_coding_tpu_torch.common.frame import ChromaSubsampling, Frame
+    from video_coding_tpu_torch.common.plane import Plane
+    from video_coding_tpu_torch.model import encoder as menc
+
+    rng = np.random.default_rng(w * h + ri)
+    s = ChromaSubsampling[f"C{sub}"]
+    frame = Frame(*(Plane(data=rng.integers(0, 256, (ph, pw),
+                                            dtype=np.uint8))
+                    for pw, ph in ((w, h), (s.chroma_width(w),
+                                            s.chroma_height(h)),
+                                   (s.chroma_width(w), s.chroma_height(h)))),
+                  s)
+    make = {"420": Parameters.c420, "444": Parameters.c444}[sub]
+    golden = {"420": menc.encode_420,
+              "444": menc.encode_444}[sub](frame, 75, restart_interval=ri)
+    for pack in ("xla", "auto", "pallas"):
+        enc = JpegEncoderSession(make(w, h, 75), ri, device=gpu,
+                                 device_pack=pack)
+        assert enc.blocks_per_segment > enc.n_blocks
+        assert enc.encode_device(frame) == golden
+        assert enc.encode_device_batch([frame, frame]) == [golden] * 2
+    bits = BitReader(golden)
+    header = Header.decode(bits)
+    payload = golden[bits.bit_pos >> 3:]
+    cpu = JpegDecoderSession(header, device="cpu").decode_device(payload)
+    dec = JpegDecoderSession(header, device=gpu)
+    for got in (dec.decode_device(payload),
+                dec._to_frame(dec.decode_device_batch([payload] * 2)[1]),
+                JpegDecoderSession(header, device=gpu,
+                                   entropy="tpu").decode(payload),
+                dec.decode(payload)):
+        for a, b in zip((got.y, got.u, got.v), (cpu.y, cpu.u, cpu.v)):
+            assert np.array_equal(a.data, b.data)
+    want = JpegTranscodeSession(header, quality=60, restart_interval=ri,
+                                device="cpu").transcode(payload)
+    for out in ("device", "host"):
+        assert JpegTranscodeSession(header, quality=60, restart_interval=ri,
+                                    device=gpu, entropy_out=out
+                                    ).transcode_batch([payload] * 2) == \
+            [want] * 2

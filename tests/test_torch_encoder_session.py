@@ -283,3 +283,33 @@ def test_wrappers_count_no_launch_on_the_cpu():
     assert before == (lookup.table_lookup.launches,
                       pack_stuff.pack_stuff.launches,
                       huffman_encode.encode_segments.launches)
+
+
+# a restart interval longer than the frame: one segment, shorter than B
+LONG_RI = [("420", 16, 16, 2), ("420", 16, 16, 5), ("420", 8, 9, 2),
+           ("420", 32, 16, 3), ("444", 8, 8, 2)]
+
+
+@pytest.mark.parametrize("pack", ["xla", "auto", "pallas"])
+@pytest.mark.parametrize("sub,w,h,ri", LONG_RI)
+def test_restart_interval_longer_than_the_frame(sub, w, h, ri, pack):
+    """encode_device and encode_device_batch under every device_pack, and
+    the host-entropy routes, give the JAX session's and the golden
+    model's bytes: the segment's schedule and its DC predictor gather are
+    built at length B."""
+    jframe = synth_frame(sub, w, h, 3)
+    golden = encode(sub, jframe, Q, ri)
+    jenc = jengine.JpegEncoderSession(ENCODERS[sub][2](w, h, Q), ri,
+                                      device_pack=pack)
+    assert jenc.encode_device_batch([jframe, jframe]) == [golden, golden]
+    enc = JpegEncoderSession(MAKERS[sub](w, h, Q), ri, device="cpu",
+                             device_pack=pack)
+    assert enc.blocks_per_segment > enc.n_blocks
+    f = _port_frame(jframe)
+    assert enc.encode_device(f) == golden
+    assert enc.encode_device_batch([f, f]) == [golden, golden]
+    for entropy in ("native", "python", "tpu"):
+        host = JpegEncoderSession(MAKERS[sub](w, h, Q), ri, device="cpu",
+                                  entropy=entropy)
+        assert host.encode(f) == golden
+        assert host.encode_batch([f, f]) == [golden, golden]

@@ -149,6 +149,21 @@ _CHILD = textwrap.dedent("""
         assert model_cli.main(["--engine", "torch", "--device", "cpu",
                                "decode", "frame", jpg,
                                os.path.join(d, "f.yuv")]) == 0
+    # the host entropy engine: the port's own library, built from its own
+    # source under build/torch_kernels/, never the JAX package's native/
+    import pathlib
+    from video_coding_tpu_torch.entropy import native, scan
+    lib = native.load()
+    lib_path = pathlib.Path(lib._name).resolve()
+    assert lib_path.parent.parts[-2:] == ("build", "torch_kernels")
+    assert "native" not in lib_path.parts and lib.vct_version() == 7
+    segs = scan.destuff_segments(rp)
+    coefs = scan.decode_scan(segs, host.comp_idx, host.blocks_per_segment,
+                             host.tables, use_native=True)
+    assert (coefs == scan.decode_scan(segs, host.comp_idx,
+                                      host.blocks_per_segment, host.tables,
+                                      use_native=False)).all()
+    print("ENGINE", lib_path)
     for mod in (frame, plane, size, gather_pack, pack_stuff, symbols, lookup,
                 sparse, dct, decoder, encoder, util, color, trace, mjpeg,
                 play, tools.yuv_format, tools.convert, tools.packed_422,
@@ -172,6 +187,9 @@ def test_port_runs_without_jax_or_reference_package():
     assert r.returncode == 0, r.stderr
     assert "LEAKED []" in r.stdout
     assert "JAX []" in r.stdout
+    engine_lib = pathlib.Path(r.stdout.split("ENGINE ")[1].split()[0])
+    assert engine_lib.parent == root / "build" / "torch_kernels"
+    assert not engine_lib.is_relative_to(root / "native")
 
 
 def test_port_sources_name_neither_jax_nor_reference_package():
@@ -195,6 +213,7 @@ def test_port_sources_name_neither_jax_nor_reference_package():
                 "tools/yuv_format.py", "device.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/pipeline.py",
                 "parallel/multihost.py", "cli/__init__.py", "cli/model_cli.py",
+                "entropy/native.py", "entropy/scan.py",
                 "cli/simulate_cli.py", "cli/generate_cli.py", "cli/oyuv.py",
                 "cli/dct_tool.py"):
         assert f"video_coding_tpu_torch/{mod}" in names

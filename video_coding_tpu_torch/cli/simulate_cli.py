@@ -14,9 +14,10 @@ compared bit-for-bit:
                             stream shape) or host Huffman decode vs model
                             coefficients for N blocks
 - ``encoder-accelerator`` — accelerated encode vs model bytes
-- ``filter-stuffed-bytes``— the numpy destuffer vs the model extractor
-                            on a real stream and randomized buffers (host
-                            only: no ``--device``)
+- ``filter-stuffed-bytes``— the host entropy engine's destuffer vs the
+                            model extractor on a real stream, and vs the
+                            Python tier on randomized buffers (host only:
+                            no ``--device``)
 - ``inspect``             — per-block model vs accelerated stages (K2 for
                             the accelerated reconstruction)
 """
@@ -232,30 +233,23 @@ def cmd_inspect(args) -> int:
     return 0
 
 
-def _numpy_destuff(data: bytes) -> list[bytes]:
-    """The port's vectorized destuff (``scan.destuff_flat``, the C++
-    engine's replacement) as per-segment bytes."""
-    from ..entropy.scan import destuff_flat
-
-    flat, lens = destuff_flat(data)
-    ends = np.cumsum(lens)
-    return [flat[e - n:e].tobytes() for e, n in zip(ends, lens)]
-
-
 def cmd_filter_stuffed_bytes(args) -> int:
+    from ..entropy.scan import destuff_segments
+
     data, header, payload = _load(args.input)
     bits = BitReader(data)
     mdec.Header.decode(bits)
     model_segments = mdec.extract_entropy_segments(bits)
-    ok = _numpy_destuff(payload) == model_segments
-    print(f"{len(model_segments)} segments, numpy == model: {ok}")
+    native_segments = destuff_segments(payload, use_native=True)
+    ok = native_segments == model_segments
+    print(f"{len(model_segments)} segments, native == model: {ok}")
     rng = np.random.default_rng(args.seed)
     fails = 0
     for _ in range(args.count):
         buf = rng.integers(0, 256, rng.integers(1, 512),
                            dtype=np.uint8).tobytes()
-        a = _numpy_destuff(buf)
-        b = mdec.extract_entropy_segments(BitReader(buf))
+        a = destuff_segments(buf, use_native=True)
+        b = destuff_segments(buf, use_native=False)
         fails += a != b
     print(f"randomized buffers: {args.count - fails}/{args.count} match")
     return 0 if ok and not fails else 1

@@ -667,7 +667,7 @@ def decode_scan_tpu(segments: list[bytes], comp_idx, blocks_per_segment: int,
     seg_blocks = np.full(S, B, dtype=np.int32)
     if n_blocks % B:
         seg_blocks[-1] = n_blocks % B
-    comp_sched = np.asarray(comp_idx[:B], dtype=np.int32)
+    comp_sched = np.resize(np.asarray(comp_idx[:B], dtype=np.int32), B)
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)

@@ -2,41 +2,85 @@
 restart-free streams, the host entropy decoder (strict and resync), the
 host entropy coder and frame pipelining.
 
-``destuff_flat`` is the vectorized numpy form of the reference's C++
-destuff pass: one flat destuffed buffer plus the byte length of every
-restart segment, with the same semantics (0xFF00 → 0xFF, RSTn ends a
-segment, 0xFFFF is a fill byte, any other marker ends the scan).
-``destuff_segments`` gives the same bytes as one ``bytes`` object a
-segment, through the golden model's walk. ``index_scan`` is the
-reference's symbol walk in pure Python (its C++ form is not used here).
-``decode_scan`` / ``decode_scan_resync`` are the host decoder, the golden
-model's ``decode_scan_blocks`` on the session's tables (its
-``SegmentDecodeError`` is re-exported here), and ``encode_scan`` the host
-coder, both in pure Python: the port has no C++ engine.
+Every entry point has two tiers with the same semantics, chosen by the
+caller's ``use_native``:
+
+- ``None`` or ``True`` (the default): the host entropy engine, the C++
+  library of ``entropy/native.py`` (``csrc/host_entropy.cpp``), with its
+  per-segment decode and encode on ``n_threads`` threads. A failed build
+  raises; nothing falls back.
+- ``False``: pure Python / numpy. ``destuff_flat`` is a vectorized numpy
+  pass (0xFF00 → 0xFF, RSTn ends a segment, 0xFFFF is a fill byte, any
+  other marker ends the scan), ``destuff_segments`` the golden model's
+  walk, ``index_scan`` a rolling-window symbol walk, ``decode_scan`` /
+  ``decode_scan_resync`` the golden model's ``decode_scan_blocks`` (its
+  ``SegmentDecodeError`` is re-exported here) and ``encode_scan`` a
+  BitWriter coder. The tests hold the engine against this tier.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from ..common.bitstream import BitReader, BitWriter
 from ..model.decoder import (SegmentDecodeError, decode_scan_blocks,
-                             extract_entropy_segments_with_markers)
+                             decode_slot_run,
+                             extract_entropy_segments_with_markers,
+                             plan_segment_alignment)
 from ..model.encoder import magnitude_bits, size_category
 from ..model.header import DecodeError
+from . import native
 from .tables import DecoderTables, EncoderTables
 
 
-def destuff_flat(data: bytes) -> tuple[np.ndarray, np.ndarray]:
-    """Raw entropy-coded bytes → (flat destuffed uint8 buffer, per-segment
-    byte lengths int64).
+def native_available() -> bool:
+    """Whether the host entropy engine builds and loads here."""
+    return native.available()
 
-    Every 0xFF is classified by the byte after it (0xD9 past the end):
-    0x00 keeps the 0xFF and drops the stuffed 0x00; RST0-7 drops both and
-    ends the segment; another 0xFF drops this one (fill); anything else
-    terminates the scan at this 0xFF. The classes never overlap — the
-    byte a stuffing or RSTn pair consumes is never 0xFF — so each 0xFF is
-    classified on its own, without a sequential walk."""
+
+def _engine(use_native: bool | None):
+    """The engine's library for ``use_native`` None or True (raising when
+    it does not build), None for False."""
+    return None if use_native is False else native.load()
+
+
+def _default_threads() -> int:
+    return min(os.cpu_count() or 1, 16)
+
+
+def _destuff_native(lib, data: bytes, slack: int):
+    """One engine destuff pass → (out buffer, segment end offsets,
+    terminating RSTn indices)."""
+    arr = np.frombuffer(data, dtype=np.uint8)
+    out = np.empty(len(data) + slack, dtype=np.uint8)
+    max_segs = len(data) // 2 + 2
+    seg_ends = np.zeros(max_segs, dtype=np.int64)
+    seg_marks = np.zeros(max_segs, dtype=np.int64)
+    n = lib.vct_destuff_segments_m(arr, len(arr), out, seg_ends, seg_marks,
+                                   max_segs)
+    if n <= 0:
+        raise ValueError("destuff failed on entropy stream")
+    return out, seg_ends[:n], seg_marks[:n - 1]
+
+
+def destuff_flat(data: bytes, use_native: bool | None = None
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Raw entropy-coded bytes → (flat destuffed uint8 buffer, per-segment
+    byte lengths int64): the zero-copy input of the device decode routes.
+
+    In the numpy tier every 0xFF is classified by the byte after it (0xD9
+    past the end): 0x00 keeps the 0xFF and drops the stuffed 0x00; RST0-7
+    drops both and ends the segment; another 0xFF drops this one (fill);
+    anything else terminates the scan at this 0xFF. The classes never
+    overlap — the byte a stuffing or RSTn pair consumes is never 0xFF — so
+    each 0xFF is classified on its own, without a sequential walk."""
+    lib = _engine(use_native)
+    if lib is not None:
+        out, ends, _marks = _destuff_native(lib, data, 8)
+        starts = np.concatenate([[0], ends[:-1]])
+        return out[:int(ends[-1])], (ends - starts).astype(np.int64)
     a = np.frombuffer(data, dtype=np.uint8)
     n = a.size
     ff = np.flatnonzero(a == 0xFF)
@@ -65,17 +109,25 @@ def destuff_flat(data: bytes) -> tuple[np.ndarray, np.ndarray]:
     return flat, lens
 
 
-def destuff_segments(data: bytes) -> list[bytes]:
+def destuff_segments(data: bytes,
+                     use_native: bool | None = None) -> list[bytes]:
     """0xFF00→0xFF, split at RSTn, stop at any other marker."""
-    return destuff_segments_with_markers(data)[0]
+    return destuff_segments_with_markers(data, use_native)[0]
 
 
-def destuff_segments_with_markers(data: bytes
+def destuff_segments_with_markers(data: bytes,
+                                  use_native: bool | None = None
                                   ) -> tuple[list[bytes], list[int]]:
     """Destuffed segments plus the RSTn modulo-8 index terminating each
     (len = len(segments) - 1), from one pass over the bytes — the indices
     feed restart resynchronization (decode_scan_resync)."""
-    return extract_entropy_segments_with_markers(BitReader(data))
+    lib = _engine(use_native)
+    if lib is None:
+        return extract_entropy_segments_with_markers(BitReader(data))
+    out, ends, marks = _destuff_native(lib, data, 1)
+    starts = np.concatenate([[0], ends[:-1]])
+    return ([out[a:b].tobytes() for a, b in zip(starts, ends)],
+            marks.tolist())
 
 
 def rst_marker_indices(data: bytes) -> list[int]:
@@ -85,14 +137,28 @@ def rst_marker_indices(data: bytes) -> list[int]:
 
 
 def pack_lanes_sorted(flat: np.ndarray, lens64: np.ndarray,
-                      order: np.ndarray, L: int) -> np.ndarray:
+                      order: np.ndarray, L: int,
+                      use_native: bool | None = None) -> np.ndarray:
     """(S, L) zero-padded uint8 lane matrix from the flat destuffed
-    buffer, rows permuted by ``order`` (the load-balancing length sort).
-    ``L`` must be >= lens64.max() + 4: the guard bytes are what a decoder
-    reads past a segment's end."""
+    buffer, rows permuted by ``order`` (the load-balancing length sort):
+    the engine's strided copy or a numpy gather. ``L`` must be >=
+    lens64.max() + 4: the guard bytes are what a decoder reads past a
+    segment's end (a shorter ``L`` than a segment raises)."""
     S = len(lens64)
+    if S and L < int(lens64.max()):
+        raise ValueError(f"lane length {L} is shorter than a segment "
+                         f"({int(lens64.max())} bytes)")
     starts = np.zeros(S, np.int64)
     np.cumsum(lens64[:-1], out=starts[1:])
+    lib = _engine(use_native)
+    if lib is not None:
+        out = np.zeros((S, L), np.uint8)
+        lib.vct_pack_lanes(
+            np.ascontiguousarray(flat, dtype=np.uint8).reshape(-1)
+            if len(flat) else np.zeros(1, np.uint8), starts,
+            np.ascontiguousarray(lens64, dtype=np.int64),
+            np.ascontiguousarray(order, dtype=np.int32), S, L, out)
+        return out
     cols = np.arange(L, dtype=np.int64)[None, :]
     st = starts[order][:, None]
     ln = lens64[order].astype(np.int64)[:, None]
@@ -103,7 +169,8 @@ def pack_lanes_sorted(flat: np.ndarray, lens64: np.ndarray,
 
 
 def index_scan(flat: np.ndarray, comp_idx: np.ndarray, stride: int,
-               tables: DecoderTables) -> tuple[np.ndarray, np.ndarray]:
+               tables: DecoderTables, use_native: bool | None = None
+               ) -> tuple[np.ndarray, np.ndarray]:
     """Index ONE destuffed restart-free entropy segment for parallel
     decode: walk the symbol stream (no coefficient writes) and record, at
     every ``stride``-block boundary, the absolute bit position and the
@@ -113,9 +180,37 @@ def index_scan(flat: np.ndarray, comp_idx: np.ndarray, stride: int,
 
     Returns (bit_offsets (R,) int64, dc_preds (R, 8) int32); raises
     ValueError on a malformed symbol (no matching code, a DC category
-    above 15, an AC run past position 63). Pure Python over a rolling
-    64-bit window — roughly a microsecond a symbol, seconds for a 1080p
-    frame; the sessions run the frames of a batch on a thread pool."""
+    above 15, an AC run past position 63). The engine's walk, or with
+    ``use_native=False`` ``_index_scan_py``."""
+    if stride < 1:
+        raise ValueError(f"index scan stride must be >= 1, got {stride}")
+    lib = _engine(use_native)
+    if lib is None:
+        return _index_scan_py(flat, comp_idx, stride, tables)
+    n_blocks = len(comp_idx)
+    R = (n_blocks + stride - 1) // stride
+    bit_offsets = np.zeros(R, dtype=np.int64)
+    dc_preds = np.zeros((R, 8), dtype=np.int32)
+    flat = np.ascontiguousarray(flat, dtype=np.uint8)
+    rc = lib.vct_index_scan(
+        flat if len(flat) else np.zeros(1, np.uint8), len(flat),
+        np.ascontiguousarray(comp_idx, dtype=np.int32), n_blocks,
+        len(tables.dc_maxbits), *_lut_args(tables), stride, bit_offsets,
+        dc_preds.reshape(-1))
+    if rc != 0:
+        raise ValueError(f"index scan failed at block {-rc - 1}")
+    return bit_offsets, dc_preds
+
+
+def _lut_args(tables: DecoderTables) -> tuple:
+    return (tables.dc_maxbits, tables.dc_lut, tables.dc_off,
+            tables.ac_maxbits, tables.ac_lut, tables.ac_off)
+
+
+def _index_scan_py(flat: np.ndarray, comp_idx: np.ndarray, stride: int,
+                   tables: DecoderTables) -> tuple[np.ndarray, np.ndarray]:
+    """``index_scan`` in pure Python over a rolling 64-bit window:
+    roughly a microsecond a symbol, seconds for a 1080p frame."""
     data = flat.tobytes()
     dlen = len(data)
     n_blocks = len(comp_idx)
@@ -193,33 +288,96 @@ def _blocks_args(comp_idx: np.ndarray, tables: DecoderTables):
             list(zip(tables.dc_luts, tables.ac_luts)))
 
 
-def decode_scan(segments: list[bytes], comp_idx: np.ndarray,
-                blocks_per_segment: int,
-                tables: DecoderTables) -> np.ndarray:
-    """Huffman-decode a whole scan on the host, segment after segment, in
-    pure Python (``model.decoder.decode_scan_blocks``). Returns
-    (n_blocks, 64) int32 zigzag coefficients with DC predictors resolved
-    per segment. A wrong segment count raises ValueError; malformed data
-    raises SegmentDecodeError naming the failing block."""
-    n_blocks = len(comp_idx)
-    expected = (n_blocks + blocks_per_segment - 1) // blocks_per_segment
-    if len(segments) != expected:
+def _joined(segments: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    """Segments as one buffer (never empty) and their byte offsets."""
+    data = np.frombuffer(b"".join(segments) or b"\0", dtype=np.uint8)
+    offsets = np.zeros(len(segments) + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum([len(s) for s in segments])
+    return data, offsets
+
+
+def _native_decode(lib, data, offsets, comp_idx, n_blocks,
+                   blocks_per_segment, tables, coefs, n_threads,
+                   seg_status=None) -> int:
+    """One engine call over the segments data[offsets[s]:offsets[s+1]]:
+    the strict decode (0 or the failing block's -(block + 1)), or with
+    ``seg_status`` the resync decode (the damaged count). Raises at the
+    engine's component cap."""
+    nt = n_threads if n_threads is not None else _default_threads()
+    args = (data, offsets, len(offsets) - 1,
+            np.ascontiguousarray(comp_idx, dtype=np.int32), n_blocks,
+            blocks_per_segment, len(tables.dc_maxbits), *_lut_args(tables),
+            coefs.reshape(-1))
+    rc = (lib.vct_decode_blocks(*args, nt) if seg_status is None
+          else lib.vct_decode_blocks_resync(*args, seg_status, nt))
+    if rc == -1000000000:
+        raise ValueError("the host entropy engine supports at most 8 scan "
+                         "components")
+    return rc
+
+
+def _check_segment_count(n: int, n_blocks: int, B: int) -> None:
+    expected = (n_blocks + B - 1) // B
+    if n != expected:
         raise ValueError(
             f"expected {expected} restart segments for {n_blocks} blocks "
-            f"(interval {blocks_per_segment}), got {len(segments)}")
-    coefs, _ = decode_scan_blocks(segments, [],
-                                  *_blocks_args(comp_idx, tables),
-                                  blocks_per_segment)
+            f"(interval {B}), got {n}")
+
+
+def decode_scan(segments: list[bytes], comp_idx: np.ndarray,
+                blocks_per_segment: int, tables: DecoderTables,
+                use_native: bool | None = None,
+                n_threads: int | None = None) -> np.ndarray:
+    """Huffman-decode a whole scan on the host: the engine's segments on
+    ``n_threads`` threads, or with ``use_native=False`` the golden model's
+    ``decode_scan_blocks``, segment after segment. Returns (n_blocks, 64)
+    int32 zigzag coefficients with DC predictors resolved per segment. A
+    wrong segment count raises ValueError; malformed data raises
+    SegmentDecodeError naming the failing block."""
+    n_blocks = len(comp_idx)
+    _check_segment_count(len(segments), n_blocks, blocks_per_segment)
+    lib = _engine(use_native)
+    if lib is None:
+        coefs, _ = decode_scan_blocks(segments, [],
+                                      *_blocks_args(comp_idx, tables),
+                                      blocks_per_segment)
+        return coefs
+    coefs = np.zeros((n_blocks, 64), dtype=np.int32)
+    rc = _native_decode(lib, *_joined(segments), comp_idx, n_blocks,
+                        blocks_per_segment, tables, coefs, n_threads)
+    if rc != 0:
+        raise SegmentDecodeError(-rc - 1)
+    return coefs
+
+
+def destuff_and_decode_scan(data: bytes, comp_idx: np.ndarray,
+                            blocks_per_segment: int, tables: DecoderTables,
+                            n_threads: int | None = None) -> np.ndarray:
+    """The engine's destuff and Huffman decode of a raw (stuffed) entropy
+    stream in one pass: the destuffed bytes stay in one buffer and feed
+    the decode directly, with no per-segment bytes objects. The same
+    result and errors as ``decode_scan(destuff_segments(data), ...)``."""
+    lib = native.load()
+    n_blocks = len(comp_idx)
+    out, ends, _marks = _destuff_native(lib, data, 1)
+    _check_segment_count(len(ends), n_blocks, blocks_per_segment)
+    coefs = np.zeros((n_blocks, 64), dtype=np.int32)
+    rc = _native_decode(lib, out, np.concatenate([[0], ends]), comp_idx,
+                        n_blocks, blocks_per_segment, tables, coefs,
+                        n_threads)
+    if rc != 0:
+        raise SegmentDecodeError(-rc - 1)
     return coefs
 
 
 def decode_scan_resync(segments: list[bytes], comp_idx: np.ndarray,
                        blocks_per_segment: int, tables: DecoderTables,
+                       use_native: bool | None = None,
+                       n_threads: int | None = None,
                        marker_indices: list[int] | None = None
                        ) -> tuple[np.ndarray, list[int]]:
     """Error-concealing scan decode using restart-marker
-    resynchronization, on the host in pure Python
-    (``model.decoder.decode_scan_blocks``).
+    resynchronization.
 
     A decode error inside a segment conceals it from the failing block
     onward (all-zero coefficients → mid-gray after reconstruction); the
@@ -232,29 +390,117 @@ def decode_scan_resync(segments: list[bytes], comp_idx: np.ndarray,
     that does not match the segments) segment j is slot j. Truncated
     streams conceal the missing segments; extras are ignored.
 
+    The engine decodes each stretch of single-slot segments in one call;
+    a merged run (marker loss, rare) takes the golden model's
+    ``decode_slot_run``. With ``use_native=False`` the whole scan is the
+    golden model's ``decode_scan_blocks``.
+
     Returns ``(coefs, damaged)`` — the (n_blocks, 64) int32 coefficients
     and the sorted list of damaged segment indices."""
     if marker_indices is None or len(marker_indices) != len(segments) - 1:
         marker_indices = []
-    return decode_scan_blocks(segments, marker_indices,
-                              *_blocks_args(comp_idx, tables),
-                              blocks_per_segment, resync=True)
+    lib = _engine(use_native)
+    keys, luts = _blocks_args(comp_idx, tables)
+    if lib is None:
+        return decode_scan_blocks(segments, marker_indices, keys, luts,
+                                  blocks_per_segment, resync=True)
+    B = blocks_per_segment
+    n_blocks = len(comp_idx)
+    items, uncovered = plan_segment_alignment(
+        marker_indices, len(segments), (n_blocks + B - 1) // B)
+    damaged = set(uncovered)
+    coefs = np.zeros((n_blocks, 64), dtype=np.int32)
+    groups: list[tuple[int, list[int]]] = []   # (first slot, segments)
+    for slot0, n_slots, j in items:
+        if n_slots > 1:
+            damaged.update(decode_slot_run(segments[j], slot0, n_slots,
+                                           coefs, keys, luts, B))
+        elif groups and groups[-1][0] + len(groups[-1][1]) == slot0:
+            groups[-1][1].append(j)
+        else:
+            groups.append((slot0, [j]))
+    for slot0, js in groups:
+        first = slot0 * B
+        count = min(len(js) * B, n_blocks - first)
+        if count <= 0:
+            continue
+        seg_status = np.zeros(len(js), dtype=np.int64)
+        _native_decode(lib, *_joined([segments[j] for j in js]),
+                       comp_idx[first:], count, B, tables, coefs[first:],
+                       n_threads, seg_status=seg_status)
+        damaged.update(slot0 + int(t) for t in np.flatnonzero(seg_status))
+    return coefs, sorted(damaged)
+
+
+_RANGE_ERROR = "quantized coefficients exceed the 12-bit baseline-JPEG range"
+
+
+def _native_encode(lib, qcoefs: np.ndarray, comp_idx: np.ndarray,
+                   blocks_per_segment: int, tables: EncoderTables,
+                   n_threads: int | None):
+    """The engine's per-segment encode → (out, seg_stride, seg_lens):
+    segment s's stuffed bytes are out[s·seg_stride:][:seg_lens[s]].
+    int16 coefficients (the dense device download) are read as they
+    are; anything else is widened to int32."""
+    if qcoefs.dtype == np.int16 and qcoefs.flags.c_contiguous:
+        q, fn = qcoefs, lib.vct_encode_blocks_i16
+    else:
+        q = np.ascontiguousarray(qcoefs, dtype=np.int32)
+        fn = lib.vct_encode_blocks
+    n_blocks = len(comp_idx)
+    if q.size < 64 * n_blocks:
+        raise ValueError(f"{q.size // 64} coefficient blocks for "
+                         f"{n_blocks} scheduled blocks")
+    B = blocks_per_segment
+    n_segments = (n_blocks + B - 1) // B
+    comp_idx = np.ascontiguousarray(comp_idx, dtype=np.int32)
+    nt = n_threads if n_threads is not None else _default_threads()
+    # typical streams fit the lean buffer; escalate to the absolute worst
+    # case (<= 209 raw bytes a block, <= 2x after stuffing) on demand
+    for per_block in (260, 64 * 8):
+        seg_stride = B * per_block + 256
+        out = np.empty(n_segments * seg_stride, dtype=np.uint8)
+        seg_lens = np.zeros(n_segments, dtype=np.int64)
+        rc = fn(q.reshape(-1), comp_idx, n_blocks, B, n_segments,
+                len(tables.dc_bits) // 12, tables.dc_bits, tables.dc_len,
+                tables.ac_bits, tables.ac_len, out, seg_stride, seg_lens, nt)
+        if rc == 0:
+            return out, seg_stride, seg_lens
+    # worst-case buffers cannot overflow: what is left is one of the
+    # engine's distinct causes (VCT_ECOMP, VCT_ERANGE, the component cap)
+    if rc == -2:
+        raise ValueError("comp_idx entry outside the packed table range "
+                         "[0, n_components)")
+    if rc == -1000000000:
+        raise ValueError("the host entropy engine supports at most 8 scan "
+                         "components")
+    if rc == -3:
+        raise ValueError(_RANGE_ERROR)
+    raise ValueError(f"entropy encode failed (engine error {rc})")
 
 
 def encode_scan(qcoefs: np.ndarray, comp_idx: np.ndarray,
-                blocks_per_segment: int,
-                tables: EncoderTables) -> list[bytes]:
-    """Entropy-encode a whole scan on the host. Returns one stuffed,
-    1-bit-padded byte buffer per restart segment (the caller joins them
-    with RSTn markers). Pure Python over a BitWriter: about a second for
-    a 1080p frame."""
+                blocks_per_segment: int, tables: EncoderTables,
+                use_native: bool | None = None,
+                n_threads: int | None = None) -> list[bytes]:
+    """Entropy-encode a whole scan on the host: the engine's segments on
+    ``n_threads`` threads, or with ``use_native=False`` a BitWriter coder
+    in pure Python (about a second for a 1080p frame). Returns one
+    stuffed, 1-bit-padded byte buffer per restart segment (the caller
+    joins them with RSTn markers)."""
     n_blocks = len(comp_idx)
     qcoefs = np.ascontiguousarray(qcoefs, dtype=np.int32)
     if np.abs(qcoefs).max(initial=0) > 2047:
         # the Huffman magnitude range is 11 bits (DC diff <= cat 11, AC <=
         # cat 10); larger values would index past the code tables
-        raise ValueError("quantized coefficients exceed the 12-bit "
-                         "baseline-JPEG range")
+        raise ValueError(_RANGE_ERROR)
+    lib = _engine(use_native)
+    if lib is not None:
+        out, stride, lens = _native_encode(lib, qcoefs, comp_idx,
+                                           blocks_per_segment, tables,
+                                           n_threads)
+        return [out[s * stride:s * stride + n].tobytes()
+                for s, n in enumerate(lens.tolist())]
     comps = np.ascontiguousarray(comp_idx, dtype=np.int32).tolist()
     n_segments = (n_blocks + blocks_per_segment - 1) // blocks_per_segment
     ncomp = len(tables.dc_bits) // 12
@@ -314,12 +560,27 @@ def join_segments(segments: list[bytes]) -> bytes:
 
 
 def encode_scan_stream(qcoefs: np.ndarray, comp_idx: np.ndarray,
-                       blocks_per_segment: int,
-                       tables: EncoderTables) -> bytes:
+                       blocks_per_segment: int, tables: EncoderTables,
+                       use_native: bool | None = None,
+                       n_threads: int | None = None) -> bytes:
     """Entropy-encode a whole scan straight to its on-the-wire entropy
-    body: ``encode_scan`` and the RSTn join."""
-    return join_segments(encode_scan(qcoefs, comp_idx, blocks_per_segment,
-                                     tables))
+    body, stuffed segments joined with RSTn markers. The engine stays in
+    its own buffers end to end (encode, then ``vct_assemble_stream``) and
+    reads int16 coefficients without widening them, enforcing the 12-bit
+    range inside its encode loop; ``use_native=False`` is
+    ``encode_scan`` and ``join_segments``."""
+    lib = _engine(use_native)
+    if lib is None:
+        return join_segments(encode_scan(qcoefs, comp_idx,
+                                         blocks_per_segment, tables,
+                                         use_native=False))
+    out, stride, lens = _native_encode(lib, np.asarray(qcoefs), comp_idx,
+                                       blocks_per_segment, tables, n_threads)
+    n_segments = len(lens)
+    dst = np.empty(max(int(lens.sum()) + 2 * (n_segments - 1), 1),
+                   dtype=np.uint8)
+    n = lib.vct_assemble_stream(out, stride, lens, n_segments, dst)
+    return dst[:n].tobytes()
 
 
 def _chunked(it, batch: int):
@@ -335,10 +596,11 @@ def _chunked(it, batch: int):
 
 
 def _destuff_parts(entropy_list: list, n_seg: int):
-    """Destuff many frames' entropy bytes on worker threads (numpy
-    releases the GIL in its bulk passes) and validate each frame's restart
-    segment count. Returns (parts, lens_parts) — per-frame flat buffers
-    and per-segment byte lengths."""
+    """Destuff many frames' entropy bytes on worker threads with the
+    engine (ctypes drops the GIL for each call, so the passes run in
+    parallel) and validate each frame's restart segment count. Returns
+    (parts, lens_parts) — per-frame flat buffers and per-segment byte
+    lengths."""
     if len(entropy_list) > 1:
         from concurrent.futures import ThreadPoolExecutor
 

@@ -186,6 +186,52 @@ class SegmentDecodeError(DecodeError, ValueError):
         self.block = block
 
 
+def _decode_slot(bits: BitReader, slot: int, coefs: np.ndarray, keys: list,
+                 luts, bps: int, bit_limit: int | None = None):
+    """Decode one restart slot's blocks into ``coefs``. Returns None, or
+    the index of the failing block (zeroed; earlier blocks are valid).
+    With ``bit_limit`` (resync), consuming past the segment's real bits
+    means zero-fill garbage, an error."""
+    dc_preds = {}
+    for i in range(slot * bps, min((slot + 1) * bps, len(keys))):
+        key = keys[i]
+        row = coefs[i]
+        try:
+            huffman_decode_block(bits, *luts[key], row)
+            if bit_limit is not None and bits.bit_pos > bit_limit:
+                raise DecodeError("segment data exhausted")
+        except DecodeError:
+            row[:] = 0  # the failing block may be partly written
+            return i
+        dc_preds[key] = dc_preds.get(key, 0) + int(row[0])
+        row[0] = dc_preds[key]
+    return None
+
+
+def decode_slot_run(seg: bytes, slot0: int, n_slots: int,
+                    coefs: np.ndarray, keys: list, luts,
+                    bps: int) -> list[int]:
+    """Resync decode of one received segment that carries the slots
+    ``slot0 .. slot0 + n_slots - 1`` back to back (``n_slots`` > 1 when
+    RSTn markers were lost; each slot is 1-padded to a byte boundary and
+    resets the DC predictors). An error zeroes from the failing block to
+    the run's end. Returns the run's damaged slots."""
+    n = len(keys)
+    bits = BitReader(seg)
+    for t in range(n_slots):
+        slot = slot0 + t
+        if slot * bps >= n:
+            break
+        if t:
+            bits.align_to_byte()  # slots are 1-padded to bytes
+        bad = _decode_slot(bits, slot, coefs, keys, luts, bps,
+                           bit_limit=8 * len(seg))
+        if bad is not None:
+            coefs[bad:min((slot0 + n_slots) * bps, n)] = 0
+            return [s for s in range(slot, slot0 + n_slots) if s * bps < n]
+    return []
+
+
 def decode_scan_blocks(segments: list[bytes], marker_indices: list[int],
                        keys: list, luts, blocks_per_segment: int,
                        resync: bool = False):
@@ -196,40 +242,22 @@ def decode_scan_blocks(segments: list[bytes], marker_indices: list[int],
     its (DC, AC) table pair. Restart segments reset the DC predictors.
 
     Without ``resync`` a missing segment raises DecodeError and a
-    malformed one SegmentDecodeError naming its failing block. With it, the received segments are realigned to their slots by their
-    RSTn modulo-8 index (``plan_segment_alignment``) and each run is
-    decoded, zeroed from its first failing block to the run's end; slots
-    no segment claims stay zero. Both are listed, sorted."""
+    malformed one SegmentDecodeError naming its failing block. With it,
+    the received segments are realigned to their slots by their RSTn
+    modulo-8 index (``plan_segment_alignment``) and each run is
+    decoded (``decode_slot_run``), zeroed from its first failing block to
+    the run's end; slots no segment claims stay zero. Both are listed,
+    sorted."""
     n = len(keys)
     bps = blocks_per_segment
     n_segments = -(-n // bps)
     coefs = np.zeros((n, 64), dtype=np.int32)
-
-    def decode_slot(bits, slot, bit_limit=None):
-        """Decode one slot's blocks. Returns None, or the index of the
-        failing block (zeroed; earlier blocks are valid). With
-        ``bit_limit`` (resync), consuming past the segment's real bits
-        means zero-fill garbage, an error."""
-        dc_preds = {}
-        for i in range(slot * bps, min((slot + 1) * bps, n)):
-            key = keys[i]
-            row = coefs[i]
-            try:
-                huffman_decode_block(bits, *luts[key], row)
-                if bit_limit is not None and bits.bit_pos > bit_limit:
-                    raise DecodeError("segment data exhausted")
-            except DecodeError:
-                row[:] = 0  # the failing block may be partly written
-                return i
-            dc_preds[key] = dc_preds.get(key, 0) + int(row[0])
-            row[0] = dc_preds[key]
-        return None
-
     if not resync:
         for slot in range(n_segments):
             if slot >= len(segments):
                 raise DecodeError(f"missing restart segment {slot}")
-            bad = decode_slot(BitReader(segments[slot]), slot)
+            bad = _decode_slot(BitReader(segments[slot]), slot, coefs, keys,
+                               luts, bps)
             if bad is not None:
                 raise SegmentDecodeError(bad)
         return coefs, None
@@ -237,20 +265,8 @@ def decode_scan_blocks(segments: list[bytes], marker_indices: list[int],
                                               n_segments)
     damaged = set(uncovered)
     for slot0, n_slots, j in items:
-        seg = segments[j]
-        bits = BitReader(seg)
-        for t in range(n_slots):
-            slot = slot0 + t
-            if slot * bps >= n:
-                break
-            if t:
-                bits.align_to_byte()  # slots are 1-padded to bytes
-            bad = decode_slot(bits, slot, bit_limit=8 * len(seg))
-            if bad is not None:
-                coefs[bad:min((slot0 + n_slots) * bps, n)] = 0
-                damaged.update(s for s in range(slot, slot0 + n_slots)
-                               if s * bps < n)
-                break
+        damaged.update(decode_slot_run(segments[j], slot0, n_slots, coefs,
+                                       keys, luts, bps))
     return coefs, sorted(damaged)
 
 

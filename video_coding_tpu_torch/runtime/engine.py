@@ -2,7 +2,8 @@
 
   host:   header parse → geometry plan → table packing → destuff and
           length-sorted lane prep (restart-free streams: an index scan
-          that cuts the one segment into virtual segments)
+          that cuts the one segment into virtual segments), all in the
+          host entropy engine (``entropy/native.py``)
   device: Huffman decode, one segment per lane (K1, or by stream shape
           and strategy K5, K6, K7) → K2 decode datapath → plane assembly
           → pad clean → block gather → K3 encode datapath → entropy
@@ -16,12 +17,13 @@ planes are cropped, the chroma upsampled and converted to (…, H, W, 3)
 uint8 (``ops/color.py``, plain torch), the input of a training step.
 
 The decoder session also has the host-entropy route: the host Huffman
-decoder (pure Python; with resync, error concealment by restart segment)
-or the padded-matrix decode on the device, then a dense or sparse
-coefficient upload, K2 and the plane gather. The encoder session has its
-counterpart: K3 on the device, a dense or sparse coefficient download,
-then the host coder (pure Python) or the gather packer per frame; the
-transcode session can end in it (``entropy_out="host"``).
+decoder (the C++ engine, or pure Python; with resync, error concealment
+by restart segment) or the padded-matrix decode on the device, then a
+dense or sparse coefficient upload, K2 and the plane gather. The encoder
+session has its counterpart: K3 on the device, a dense or sparse
+coefficient download, then the host coder (the engine, or pure Python) or
+the gather packer per frame; the transcode session can end in it
+(``entropy_out="host"``).
 
 Sessions run on ``cuda`` unless the caller passes a device (the tests pass
 ``device="cpu"``, which runs every kernel's plain PyTorch version). With
@@ -111,6 +113,14 @@ def _blocks_from_plane(plane: torch.Tensor, nby: int,
             .reshape(f, nby * nbx, 8, 8))
 
 
+def _segment_rows(a: torch.Tensor, B: int) -> torch.Tensor:
+    """The first ``B`` rows of a per-block array, repeated when the frame
+    has fewer blocks (one segment, shorter than the restart interval):
+    ``np.resize``'s rule. The block schedule repeats with the MCU, so
+    every lane of B blocks shares these rows."""
+    return a[torch.arange(B, device=a.device) % a.shape[0]].contiguous()
+
+
 def _lane_bucket(max_len: int, floor_log2: int) -> int:
     """Power-of-two lane length with >= 4 guard bytes past the longest
     lane."""
@@ -144,17 +154,17 @@ class JpegDecoderSession:
 
     ``decode``, ``decode_batch`` and ``decode_iter`` take the host-entropy
     route: ``decode_entropy`` gives (n_blocks, 64) coefficients on the
-    host by ``entropy`` — ``"python"`` (the host decoder, pure Python:
-    seconds for a 1080p frame), ``"native"`` (the same host decoder: the
-    port has no C++ engine, and does what the reference does when its
-    library is absent) or ``"tpu"`` (the padded lane matrix decoded on the
-    session's device by ``device_huffman``, so ``"auto"`` runs K1, K6 or
-    K5) — and ``decode_planes_device`` uploads them by ``coef_transfer``:
+    host by ``entropy`` — ``"native"`` (the host entropy engine's fused
+    destuff and decode, its segments on a thread pool), ``"python"`` (the
+    golden model's decoder in pure Python: seconds for a 1080p frame) or
+    ``"tpu"`` (the padded lane matrix decoded on the session's device by
+    ``device_huffman``, so ``"auto"`` runs K1, K6 or K5) — and
+    ``decode_planes_device`` uploads them by ``coef_transfer``:
     ``"dense"`` (int32), ``"sparse"`` (occupancy bitmask + packed
     nonzeros) or ``"auto"`` (sparse on a GPU), then runs K2 and the plane
     gather. ``resync=True`` decodes on the host with error concealment by
-    restart segment, whatever ``entropy`` says, and leaves the concealed
-    segments in ``last_damaged_segments``.
+    restart segment (in pure Python for ``"python"``, else the engine)
+    and leaves the concealed segments in ``last_damaged_segments``.
 
     ``mesh`` (a ``DeviceMesh`` from ``parallel.codec_mesh``) shards the
     fused device decode over its ranks: every rank destuffs the frames,
@@ -253,8 +263,8 @@ class JpegDecoderSession:
         if seg_div not in self._views:
             st = self.state
             self._views[seg_div] = (
-                st.comp_idx[:seg_div].contiguous(),
-                st.quant[:seg_div].contiguous(),
+                _segment_rows(st.comp_idx, seg_div),
+                _segment_rows(st.quant, seg_div),
                 [(idx // seg_div, idx % seg_div, nby, nbx)
                  for idx, nby, nbx in st.plane_idx])
         return self._views[seg_div]
@@ -297,9 +307,9 @@ class JpegDecoderSession:
             return
         self._warned_serial_entropy = True
         logging.getLogger("video_coding_tpu_torch").warning(
-            "decoding a single-segment (no restart interval) stream too "
-            "small for the indexed route: one lane, serial — bit-exact "
-            "but slow")
+            "decoding a single-segment stream (no restart interval, or one "
+            "longer than the frame) too small for the indexed route: one "
+            "lane, serial — bit-exact but slow")
 
     def _expected_seg_blocks(self, S: int) -> np.ndarray:
         B = self.blocks_per_segment
@@ -677,24 +687,29 @@ class JpegDecoderSession:
         With ``resync=True`` the host decoder conceals corrupt or
         truncated data per restart segment (damaged segments zeroed from
         the failing block; see ``entropy.scan.decode_scan_resync``)
-        instead of raising, whatever ``entropy`` says (the device decoders
-        have no error strobes); ``self.last_damaged_segments`` reports
-        what was concealed."""
+        instead of raising: the engine unless ``entropy`` is
+        ``"python"`` (the device decoders have no error strobes);
+        ``self.last_damaged_segments`` reports what was concealed."""
+        native = self.entropy != "python"
         if resync:
             segments, marks = entropy_scan.destuff_segments_with_markers(
-                entropy_data)
+                entropy_data, use_native=native)
             coefs, damaged = entropy_scan.decode_scan_resync(
                 segments, self.comp_idx, self.blocks_per_segment,
-                self.tables, marker_indices=marks)
+                self.tables, use_native=native, marker_indices=marks)
             self.last_damaged_segments = damaged
             return coefs
         self.last_damaged_segments = []
         if self.entropy == "tpu":
             return self._decode_entropy_device(entropy_data)
-        # "native" is the reference's C++ decoder; here it is the host one
+        if native:
+            return entropy_scan.destuff_and_decode_scan(
+                entropy_data, self.comp_idx, self.blocks_per_segment,
+                self.tables)
         return entropy_scan.decode_scan(
-            entropy_scan.destuff_segments(entropy_data), self.comp_idx,
-            self.blocks_per_segment, self.tables)
+            entropy_scan.destuff_segments(entropy_data, use_native=False),
+            self.comp_idx, self.blocks_per_segment, self.tables,
+            use_native=False)
 
     def _decode_entropy_device(self, entropy_data: bytes) -> np.ndarray:
         """``entropy="tpu"``: the frame's segments as a length-sorted
@@ -781,11 +796,11 @@ class JpegEncoderSession:
 
     ``encode``, ``encode_planes``, ``encode_batch`` and ``encode_iter``
     run K3 on the device, download the quantized coefficients and code the
-    entropy per frame by ``entropy``: ``"python"`` (the host coder, pure
-    Python: about a second for a 1080p frame), ``"native"`` (the same host
-    coder — the port has no C++ engine, and does what the reference does
-    when its library is absent) or ``"tpu"`` (the
-    gather packer on the session's device). ``coef_transfer`` is the
+    entropy per frame by ``entropy``: ``"native"`` (the host entropy
+    engine: its segments on a thread pool, joined with RSTn markers in its
+    own buffers), ``"python"`` (the host coder in pure Python: about a
+    second for a 1080p frame) or ``"tpu"`` (the gather packer on the
+    session's device). ``coef_transfer`` is the
     download: ``"dense"`` (int16), ``"sparse"`` (occupancy bitmask +
     packed nonzeros, dense when the value budget overflows) or ``"auto"``
     (sparse on a GPU).
@@ -884,8 +899,8 @@ class JpegEncoderSession:
         if state.prev_same_comp.shape != (self.blocks_per_segment,):
             raise ValueError("prev_same_comp must be (blocks_per_segment,)")
         self.state = state
-        self._comp_sched = state.comp_idx[:self.blocks_per_segment] \
-            .contiguous()
+        self._comp_sched = _segment_rows(state.comp_idx,
+                                         self.blocks_per_segment)
         self._valid = {}
         self._local = {}     # f → this mesh rank's block gather (K3 run)
 
@@ -1198,8 +1213,11 @@ class JpegEncoderSession:
         if self.entropy == "tpu":
             return self._assemble(gather_pack.encode_scan_tpu(
                 *args, device=self.device))
-        # "native" is the reference's C++ coder; here it is the host coder
-        return self._assemble(entropy_scan.encode_scan(*args))
+        if self.entropy == "native":
+            return b"".join((self._header_bytes,
+                             entropy_scan.encode_scan_stream(*args), _EOI))
+        return self._assemble(entropy_scan.encode_scan(*args,
+                                                       use_native=False))
 
     def encode_planes(self, planes) -> bytes:
         """Padded planes (numpy arrays or tensors) → JPEG bytes: device
@@ -1259,11 +1277,11 @@ class JpegTranscodeSession:
     ``entropy_out`` says where the output's entropy is coded:
     ``"device"`` (as above), ``"host"`` (after K3 the quantized
     coefficients come down, sparse on a GPU, and the encoder session's
-    host coder, pure Python, codes each frame) or ``"auto"``, which is
+    host entropy engine codes each frame) or ``"auto"``, which is
     ``"device"`` on every device. (The reference picks ``"host"`` off its
-    accelerator only because its threaded C++ coder beats its simulated
-    device packer on a CPU; the port has no C++ coder.) Both give the same
-    bytes.
+    accelerator because its C++ coder beats its simulated device packer on
+    a CPU; the port keeps ``"device"`` there, so a CPU run checks the
+    plain versions of the device packers.) Both give the same bytes.
 
     ``mesh`` goes to both halves (see the sessions' ``mesh``): the decode
     is sharded and gathered, then the encode sharded and joined — two
