@@ -35,7 +35,12 @@
        simulate_cli, generate_cli (PTX and SASS), oyuv, dct_tool;
 - the host entropy engine (the C++ library built with g++ from
   video_coding_tpu_torch/csrc/host_entropy.cpp, which the host halves of
-  the paths above run) against the port's pure Python / numpy tier.
+  the paths above run) against the port's pure Python / numpy tier;
+- the configurations the JAX package takes beyond 4:2:0 at q75-q90:
+    L  4:2:2, 4:4:0 (the presets' layouts and libjpeg's), 4:4:4 and
+       monochrome at ri=1, 0 and one MCU row, the K4/K8 boundary, q=1 and
+       q=100, and three libjpeg-turbo streams (tests/data/torch_foreign)
+       through every route.
 
     python3 chip_smoke.py
 
@@ -198,9 +203,42 @@ Phases (any failure ends the run with a nonzero exit):
                  the re-encoded bodies equal to the sources; ms a frame of
                  each tier beside nvidia-smi's name and power limit and the
                  host's lscpu model name and os.cpu_count();
- 18. a JSON line of per-kernel numbers (with each kernel's launches on the
-     own paths A-K);
- 19. a last JSON line {"ok": true, "device": {...}}.
+ 18. path L    — at each sampling of L_SAMPLINGS, 8 synthetic 1080p frames
+                 (phase 3's luma, chroma at the sampling's size) encoded on
+                 the card at q90 with ri=1, 0 and one MCU row, each
+                 decoded back (PSNR); then, each call with the counts
+                 reset before and read after (its kernels must launch, no
+                 plain loop may) and every frame held against the
+                 host-entropy route (decode(entropy="native"), the
+                 engine's encode and transcode bytes): decode_device_batch
+                 at ri=1 (K1), ri=0 (the index scan, K1 with hooks) and
+                 one MCU row (K6, which auto_strategy must pick at each
+                 sampling), decode_gather="dma" at ri=1 and 0 (K7),
+                 decode_device with device_huffman="pallas" (K5),
+                 encode_device_batch at the K4/K8 boundary (B <= 32: K4;
+                 B = 33..40: K9 + K8), transcode_batch to q75 ri=1 (K4)
+                 and to B > 32 (K9 + K8), decode_device_rgb_batch (three
+                 components; the transcode refuses one); q=1 and q=100 at
+                 4:2:0 and 4:4:4 (4 frames) through encode_device_batch
+                 and the transcode, with the budget ladder's rungs
+                 printed; the three libjpeg-turbo
+                 streams of tests/data/torch_foreign through
+                 decode_device_batch, decode_device, decode_device_rgb,
+                 decode_jpeg and transcode_batch. For each configuration a
+                 dispatch of frame 0 equal to the same session on the CPU
+                 (the CPU sessions run in worker processes after the
+                 card's work), each kernel it launched equal to its plain
+                 version on the card on the arguments it got (K4's, K6's
+                 and K8's plain loops, launch-bound on the card, run on
+                 the CPU: the CPU session's calls on equal arguments);
+                 the rate (median of 3 windows of 8 frames) and each
+                 kernel's time at the 8-frame call's arguments (CUDA
+                 events, median of 20) beside its bound; the phase's
+                 seconds;
+ 19. a JSON line of per-kernel numbers (with each kernel's launches on the
+     own paths A-K, and its path L times by configuration under
+     "path_L");
+ 20. a last JSON line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the reference package. Needs one
 CUDA card; exits nonzero without one.
@@ -309,16 +347,18 @@ def symbol_count(coefs: torch.Tensor) -> int:
 
 class Spy:
     """Stands in for a kernel wrapper in its module for one call: keeps the
-    arguments the caller gave it, and passes attribute reads and writes
-    (the launch counts) through to the wrapper."""
+    arguments the caller gave it and the result, and passes attribute
+    reads and writes (the launch counts) through to the wrapper."""
 
     def __init__(self, fn):
         object.__setattr__(self, "fn", fn)
         object.__setattr__(self, "args", None)
+        object.__setattr__(self, "out", None)
 
     def __call__(self, *a, **k):
         object.__setattr__(self, "args", (a, k))
-        return self.fn(*a, **k)
+        object.__setattr__(self, "out", self.fn(*a, **k))
+        return self.out
 
     def __getattr__(self, name):
         return getattr(self.fn, name)
@@ -937,6 +977,42 @@ def counted_without_plain_loops(counted, call, must_launch):
     if plain_calls:
         raise RuntimeError(f"a plain loop ran on the card: {plain_calls}")
     return out, seen
+
+
+def launch_counter():
+    """counted(call, must_launch): run ``call`` with every launch count
+    set to 0 just before and read just after; the kernels in
+    ``must_launch`` must have run. Returns (call's result, the counts)."""
+    from video_coding_tpu_torch.entropy import huffman_decode as k1
+    from video_coding_tpu_torch.entropy import huffman_encode as k4
+    from video_coding_tpu_torch.entropy import pack_stuff as k8
+    from video_coding_tpu_torch.ops import datapath
+    from video_coding_tpu_torch.ops import lookup as k9
+
+    counters = {"K1": (k1.decode_flat, "launches"),
+                "K1+hooks": (k1.decode_flat, "hook_launches"),
+                "K2": (datapath.decode_datapath, "launches"),
+                "K3": (datapath.encode_datapath, "launches"),
+                "K4": (k4.encode_segments, "launches"),
+                "K5": (k1.decode_segments, "launches"),
+                "K6": (k1.decode_segments_streamed, "launches"),
+                "K7": (k1.decode_flat_staged, "launches"),
+                "K8": (k8.pack_stuff, "launches"),
+                "K9": (k9.table_lookup, "launches"),
+                "LUT": (k1.decode_lut, "launches")}
+
+    def counted(call, must_launch):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        out = call()
+        torch.cuda.synchronize()
+        seen = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        missing = [k for k in must_launch if seen[k] == 0]
+        if missing:
+            raise RuntimeError(f"path did not launch {missing}: {seen}")
+        return out, seen
+
+    return counted
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -1929,6 +2005,613 @@ def cli_paths(frames, streams, counted, smi, path_launches) -> None:
         + f"; launches {({k: v for k, v in seen_k.items() if v})}; phase 16 "
         f"took {time.perf_counter() - t_phase:.1f} s")
 
+
+# path L (phase 18): the samplings, restart intervals, quality extremes and
+# foreign streams the JAX package takes, at 1080p
+L_FRAMES = 8
+# sampling → (Y, Cb, Cr) sampling factors as Parameters.yuv takes them
+# (h, v each), or None for Parameters.monochrome; "h2v1" and "h1v2" are
+# libjpeg's layouts of 4:2:2 and 4:4:0 (an MCU of 4 blocks where the
+# presets' has 8)
+L_SAMPLINGS = {
+    "4:2:2": (2, 2, 1, 2, 1, 2),            # Parameters.c422
+    "4:2:2 h2v1": (2, 1, 1, 1, 1, 1),
+    "4:4:0": (2, 2, 2, 1, 2, 1),            # Parameters.c440
+    "4:4:0 h1v2": (1, 2, 1, 1, 1, 1),
+    "4:4:4": (1, 1, 1, 1, 1, 1),            # Parameters.c444
+    "mono": None,                           # Parameters.monochrome
+}
+# libjpeg-turbo streams (tests/data/torch_foreign/make_foreign.py) → the
+# Huffman kernel their batch decode must launch
+FOREIGN_DIR = "tests/data/torch_foreign"
+L_FOREIGN = {"webcam_422_q75_opt.jpg": "K1+hooks",
+             "rows_420_q90_rst_row.jpg": "K6",
+             "blocks_444_q85_rst1.jpg": "K1"}
+
+
+def sampled_frames(frames, chroma_shape, seed: int):
+    """The frames' luma with chroma at ``chroma_shape`` (rows, columns):
+    their 4:2:0 chroma repeated up to it plus fresh sensor-like noise from
+    ``seed``; luma alone (a 1-tuple) for None."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for y, u, v in frames:
+        if chroma_shape is None:
+            out.append((y,))
+            continue
+        ry, rx = chroma_shape[0] // u.shape[0], chroma_shape[1] // u.shape[1]
+        out.append((y,) + tuple(
+            np.clip(p.repeat(ry, 0).repeat(rx, 1)
+                    + rng.normal(0, 2, chroma_shape), 0, 255)
+            .astype(np.uint8) for p in (u, v)))
+    return out
+
+
+def split_stream(stream: bytes):
+    """(Header, entropy payload) of a JPEG byte stream."""
+    from video_coding_tpu_torch.common.bitstream import BitReader
+    from video_coding_tpu_torch.model.header import Header
+
+    bits = BitReader(stream)
+    header = Header.decode(bits)
+    return header, stream[bits.bit_pos >> 3:]
+
+
+def kernel_sites() -> dict:
+    """Kernel → (module, wrapper attribute, plain version): where the
+    sessions look each kernel's wrapper up (K4 by its name in the engine,
+    K9 in the symbol builder)."""
+    from video_coding_tpu_torch.entropy import huffman_decode as k1
+    from video_coding_tpu_torch.entropy import huffman_encode as k4
+    from video_coding_tpu_torch.entropy import pack_stuff as k8
+    from video_coding_tpu_torch.entropy import symbols
+    from video_coding_tpu_torch.ops import datapath
+    from video_coding_tpu_torch.ops import lookup as k9
+    from video_coding_tpu_torch.runtime import engine
+
+    return {
+        "K1": (k1, "decode_flat", k1.decode_flat_plain),
+        "K5": (k1, "decode_segments", k1.decode_segments_plain),
+        "K6": (k1, "decode_segments_streamed",
+               k1.decode_segments_streamed_plain),
+        "K7": (k1, "decode_flat_staged", k1.decode_flat_staged_plain),
+        "K2": (datapath, "decode_datapath", datapath.decode_datapath_plain),
+        "K3": (datapath, "encode_datapath", datapath.encode_datapath_plain),
+        "K4": (engine, "encode_segments", k4.encode_segments_plain),
+        "K8": (k8, "pack_stuff", k8.pack_stuff_plain),
+        "K9": (symbols, "table_lookup", k9.table_lookup_plain),
+    }
+
+
+def spied(sites: dict, call, sync: bool = True):
+    """call() with a Spy on every kernel site: (its result, {kernel: the
+    Spy of the kernels it called}); ``sync`` waits for the card."""
+    spies = {name: Spy(getattr(mod, attr))
+             for name, (mod, attr, _plain) in sites.items()}
+    for name, (mod, attr, _plain) in sites.items():
+        setattr(mod, attr, spies[name])
+    try:
+        out = call()
+        if sync:
+            torch.cuda.synchronize()
+    finally:
+        for name, (mod, attr, _plain) in sites.items():
+            setattr(mod, attr, spies[name].fn)
+    return out, {n: s for n, s in spies.items() if s.args is not None}
+
+
+def kernel_work(name: str, a, k, out) -> tuple[float, float]:
+    """(bytes, int32 operations) of one kernel call, as phases 4, 7 and 12
+    count them: each input read once and each output written once (K4 and
+    K8: the bytes their reads need); 40 operations a symbol decoded, 30 a
+    symbol encoded, 1200 / 1100 a block through K2 / K3, K8's per slot and
+    byte, K9's 2 an element."""
+    if name in ("K1", "K5", "K6", "K7"):
+        tensors = [t for t in list(a[:-5]) + list(k.values())
+                   if isinstance(t, torch.Tensor)]
+        return (sum(t.numel() * t.element_size() for t in tensors)
+                + sum(t.numel() * 4 for t in a[-5:]) + out.numel() * 4,
+                40.0 * symbol_count(out.view(-1, 64)))
+    if name in ("K2", "K3"):
+        n = a[0].shape[0]
+        return (n * 64 * 5 + a[1].numel() * 4,
+                (1200.0 if name == "K2" else 1100.0) * n)
+    if name == "K4":
+        real = a[0].view(-1, 64)[a[1].view(-1).bool()]
+        return k4_bound_bytes(*a, k["m_out"]), 30.0 * symbol_count(real)
+    if name == "K8":
+        S, K = a[2].shape
+        return (k8_need_bytes(*a[:3], k["m_out"]),
+                4.0 * S * K + 16.0 * int((a[2] > 0).sum())
+                + 6.0 * int(out[1].sum()))
+    n = a[1].numel()                                        # K9
+    return 8 * n + 4 * a[0].numel(), 2.0 * n
+
+
+def same(a, b) -> bool:
+    """Equal results: bytes, tensors (any device), numpy arrays, Frames,
+    Planes and sequences of them."""
+    from video_coding_tpu_torch.common.plane import Plane
+
+    if isinstance(a, (bytes, bytearray)):
+        return a == b
+    if hasattr(a, "y"):
+        a, b = [a.y, a.u, a.v], [b.y, b.u, b.v]
+    if isinstance(a, Plane):
+        a, b = a.data, b.data
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    if isinstance(b, torch.Tensor):
+        b = b.cpu().numpy()
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def cropped(dec, planes) -> list:
+    """Decoded (MCU-padded) plane tensors of one frame → numpy arrays cut
+    to the frame's actual size."""
+    return [p.cpu().numpy()[:c.actual_height, :c.actual_width]
+            for c, p in zip(dec.components, planes)]
+
+
+# kernels whose plain loops are launch-bound on the card (K4 2.5-4.5 s a
+# frame at B = 32, K8 1.5-4 s, K6 ~1.5 ms a step): path L holds them
+# against their plain versions on the CPU, on the card's arguments
+CPU_PLAIN = ("K4", "K6", "K8")
+
+
+def cpu_reference(job):
+    """Run in a worker process: one frame through a session on the CPU
+    (every kernel's plain version), or one plain version. ``job`` is
+    (kind, what makes it, method, its argument): kind "decoder" (stream
+    bytes to parse, keywords), "encoder" (Parameters, restart interval,
+    locked segment budget), "transcode" (stream bytes, quality, restart
+    interval, locked segment budget), or "plain" (kernel name, arguments,
+    keywords). Returns (the result,
+    {kernel of CPU_PLAIN: (its arguments, its result)} as the session
+    called them)."""
+    from video_coding_tpu_torch.entropy import huffman_decode as k1
+    from video_coding_tpu_torch.entropy import huffman_encode as k4
+    from video_coding_tpu_torch.entropy import pack_stuff as k8
+    from video_coding_tpu_torch.runtime import engine
+    from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
+                                                       JpegEncoderSession,
+                                                       JpegTranscodeSession)
+
+    torch.set_num_threads(1)
+    kind, make, method, arg = job
+    sites = {"K4": (engine, "encode_segments", k4.encode_segments_plain),
+             "K6": (k1, "decode_segments_streamed",
+                    k1.decode_segments_streamed_plain),
+             "K8": (k8, "pack_stuff", k8.pack_stuff_plain)}
+    if kind == "plain":
+        return sites[make][2](*method, **arg), {}
+    if kind == "decoder":
+        sess = JpegDecoderSession(split_stream(make[0])[0], device="cpu",
+                                  **make[1])
+    elif kind == "encoder":
+        sess = JpegEncoderSession(make[0], make[1], device="cpu")
+        sess._seg_budget = make[2]
+    else:
+        sess = JpegTranscodeSession(split_stream(make[0])[0],
+                                    quality=make[1], restart_interval=make[2],
+                                    device="cpu")
+        sess.encoder._seg_budget = make[3]
+    out, spies = spied(sites, lambda: getattr(sess, method)(arg),
+                       sync=False)
+    return out, {n: (sp.args, sp.out) for n, sp in spies.items()}
+
+
+def to_cpu(x):
+    """A result with every tensor in it moved to the host."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_cpu(v) for v in x)
+    return x
+
+
+def configuration_space_path(frames, counted, smi) -> dict:
+    """Phase 18 (path L): every route at the samplings, restart intervals,
+    quality extremes and foreign streams the JAX package takes, at 1080p.
+    For each configuration: the entry point's call of 8 frames with the
+    launch counts reset before and read after (the kernels named must
+    launch, no plain loop may), every frame equal to the host-entropy
+    route; a dispatch of frame 0 with every kernel it launched held
+    against its plain version on the card on the arguments it got (K4,
+    K6 and K8, whose plain loops are launch-bound on the card, on the CPU:
+    CPU_PLAIN), and its result held against the same session on the CPU;
+    the rate (median of 3 windows of 8 frames) and each kernel's time at
+    the 8-frame call's arguments beside its bound. The CPU sessions run
+    after the card's work, in worker processes, so they do not load the
+    host while rates are taken. Returns {kernel: {configuration:
+    numbers}} for the kernels line."""
+    import multiprocessing
+    import os
+    import pathlib
+    from concurrent.futures import ProcessPoolExecutor
+
+    from video_coding_tpu_torch.entropy import huffman_decode as k1
+    from video_coding_tpu_torch.model.header import DecodeError, Parameters
+    from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
+                                                       JpegEncoderSession,
+                                                       JpegTranscodeSession,
+                                                       decode_jpeg)
+
+    t_phase = time.perf_counter()
+    sites = kernel_sites()
+    per_config: dict = {}
+    rates = []
+    # (configuration, CPU job or None, the card's frame-0 result,
+    # {CPU_PLAIN kernel: (arguments, keywords, result) on the card})
+    pending = []
+
+    def exercise(tag, call, must, ref, view=lambda out: out, one=None,
+                 cpu=None, unit="frames/s", per_call=L_FRAMES):
+        """One configuration (see the docstring): ``call`` is the entry
+        point's call (``per_call`` frames), ``view`` maps its result to
+        ``ref``'s form, ``one`` is the dispatch of frame 0 and ``cpu`` the
+        same session's CPU job for it (a function returning
+        cpu_reference's job, called after frame 0's dispatch). Returns the
+        launch counts."""
+        t_all = time.perf_counter()
+        out, seen = counted_without_plain_loops(
+            counted, lambda: spied(sites, call), must)
+        out, spies = out
+        if not same(view(out), ref):
+            raise RuntimeError(f"path L {tag}: differs from the host-entropy "
+                               "route")
+        notes = []
+        for name, spy in spies.items():
+            a, k = spy.args
+            key = "K1+hooks" if name == "K1" and \
+                k.get("init_bitpos") is not None else name
+            ms = time_ms(lambda fn=spy.fn, a=a, k=k: fn(*a, **k), 20)
+            bms, by = bound_ms(*kernel_work(name, a, k, spy.out))
+            per_config.setdefault(key, {})[tag] = {
+                "ms": ms, "bound_ms": bms, "bound_by": by,
+                "launches": seen[key]}
+            notes.append(f"{key} {ms:.4f} ms (bound {bms:.4f}, {by}, "
+                         f"{bms / ms:.1%})")
+            st = getattr(spy.fn, "stats", None) if name == "K6" else None
+            if st is not None:
+                # STREAMED_STATS of the last timed call, a row each
+                st = st.to(torch.float64)
+                rounds, subs = st[:, 0], st[:, 1]
+                notes.append(f"K6 sync rounds mean "
+                             f"{float(rounds.mean()):.2f} max "
+                             f"{float(rounds.max()):.0f}, "
+                             f"{float(subs.mean()):.1f} subsequences a row")
+        del spies, out
+        t_one = time.perf_counter()
+        deferred = {}   # CPU_PLAIN kernel → (arguments, keywords, result)
+        if one is not None:
+            got1, spies1 = spied(sites, one)
+            for name, spy in spies1.items():
+                a, k = spy.args
+                if name in CPU_PLAIN:
+                    deferred[name] = (to_cpu(list(a)), k, to_cpu(spy.out))
+                    continue
+                plain = sites[name][2](*a, **k)
+                got = spy.out if isinstance(spy.out, tuple) else (spy.out,)
+                plain = plain if isinstance(plain, tuple) else (plain,)
+                if not all(torch.equal(x, y) for x, y in zip(got, plain)):
+                    raise RuntimeError(f"path L {tag}: {name} differs from "
+                                       "its plain version on the session's "
+                                       "arguments")
+            del spies1
+            if cpu is not None or deferred:
+                pending.append((tag, cpu and cpu(), to_cpu(got1),
+                                deferred))
+        t_rate = time.perf_counter()
+        windows = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(L_FRAMES // per_call):
+                call()
+            torch.cuda.synchronize()
+            windows.append(time.perf_counter() - t0)
+        windows.sort()
+        rate = (L_FRAMES / windows[1] if unit == "frames/s"
+                else L_FRAMES * WIDTH * HEIGHT / windows[1] / 1e6)
+        rates.append((tag, rate, unit))
+        log(f"path L {tag}: launches "
+            f"{ {n: v for n, v in seen.items() if v} }, every frame equal to "
+            f"the host-entropy route; each kernel of frame 0's dispatch "
+            f"equal to its plain version on the card"
+            + (f" ({', '.join(deferred)} on the CPU, below)" if deferred
+               else "")
+            + f"; {rate:.2f} {unit} (median of 3 windows of {L_FRAMES} "
+            f"frames); {'; '.join(notes)} on {smi}; "
+            f"{time.perf_counter() - t_all:.1f} s (plain checks "
+            f"{t_rate - t_one:.1f})")
+        return seen
+
+    def cpu_checks():
+        """The CPU jobs of every configuration, in worker processes: each
+        session's result equal to the card's frame 0, and K4, K6 and K8
+        equal to their plain versions on the card's arguments (the CPU
+        session's calls, or the plain version alone)."""
+        t0 = time.perf_counter()
+        workers = max(1, min(7, os.cpu_count() - 1))
+        jobs, owners = [], []
+        for i, (_tag, job, _got, deferred) in enumerate(pending):
+            if job is not None:
+                jobs.append(job)
+                owners.append((i, None))
+                continue
+            for name, (a, k, _out) in deferred.items():
+                jobs.append(("plain", name, a, k))
+                owners.append((i, name))
+        with ProcessPoolExecutor(
+                max_workers=workers,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            results = list(pool.map(cpu_reference, jobs))
+        n_plain = 0
+        for (i, name), (ref, called) in zip(owners, results):
+            tag, job, got1, deferred = pending[i]
+            if name is not None:
+                called = {name: ((deferred[name][0], deferred[name][1]),
+                                 ref)}
+            elif not same(got1, ref):
+                raise RuntimeError(f"path L {tag}: frame 0 differs from the "
+                                   "same session on the CPU")
+            for kname, (a, k, out) in deferred.items():
+                if kname not in called:
+                    continue
+                (ca, ck), cout = called[kname]
+                if ck != k or not same(list(ca), a):
+                    raise RuntimeError(f"path L {tag}: the CPU session gave "
+                                       f"{kname} other arguments")
+                if not same(out, cout):
+                    raise RuntimeError(f"path L {tag}: {kname} differs from "
+                                       "its plain version")
+                n_plain += 1
+            missing = [n for n in deferred if n not in called and (
+                name is None or n == name)]
+            if missing:
+                raise RuntimeError(f"path L {tag}: the CPU session did not "
+                                   f"call {missing}")
+        n_cpu = sum(job is not None for _, job, _, _ in pending)
+        log(f"path L: frame 0 of {n_cpu} configurations equal to the same "
+            f"sessions on the CPU; "
+            f"{n_plain} calls of K4, K6 and K8 equal to their plain versions "
+            f"(on the CPU) on the card's arguments; {workers} worker "
+            f"processes, {time.perf_counter() - t0:.1f} s")
+
+    def lut_row(tag, dec):
+        st = dec.state
+        tabs = (st.lo, st.hi, st.offset, st.values)
+        lut = k1.decode_lut(*tabs)
+        if not torch.equal(lut, k1.decode_lut_plain(*tabs)):
+            raise RuntimeError(f"path L {tag}: the LUT differs from its plain "
+                               "version")
+        T = st.lo.shape[0]
+        ms = time_ms(lambda: k1.decode_lut(*tabs), 20)
+        bms, by = bound_ms(sum(t.numel() * 4 for t in tabs)
+                           + lut.numel() * 2, T * 65536 * 3 * 16.0)
+        per_config.setdefault("LUT", {})[tag] = {
+            "ms": ms, "bound_ms": bms, "bound_by": by, "launches": 1}
+
+    def host_decode(hdr, pays):
+        return [planes_of(f) for f in JpegDecoderSession(
+            hdr, entropy="native").decode_batch(pays)]
+
+    def planes_of(frame):
+        return [p.data for p in ([frame.y, frame.u, frame.v]
+                                 if hasattr(frame, "y") else frame)]
+
+    def ladder(enc):
+        """Record (budget, overflowed) of each launch of the session's
+        budget ladder in the returned list."""
+        rungs, pack = [], enc._pack_graph
+
+        def recorded(qc_seg, f, msb, first=0):
+            r = pack(qc_seg, f, msb, first)
+            rungs.append((msb, bool(r[3])))
+            return r
+        enc._pack_graph = recorded
+        return rungs
+
+    def ladder_note(tag, rungs, enc):
+        """Print the budget ladder of the session's first call."""
+        first = rungs[:[o for _, o in rungs].index(False) + 1]
+        log(f"path L {tag}: the first call tried {[b for b, _ in first]} "
+            f"bytes a segment, {len(first) - 1} launch(es) overflowed "
+            f"before rung {len(first)} held (rung 1 = B*24+64 = "
+            f"{enc.blocks_per_segment * 24 + 64}); budget locked at "
+            f"{enc._seg_budget}"
+            + ("; rung 1 did NOT overflow at q=100"
+               if "q100" in tag and len(first) == 1 else ""))
+
+    def source(params, ri, fr):
+        """(stream, header, payloads, host-route planes) of the frames
+        encoded on the card."""
+        streams = JpegEncoderSession(params, ri).encode_device_batch(fr)
+        hdr, _ = split_stream(streams[0])
+        pays = [split_stream(x)[1] for x in streams]
+        return streams[0], hdr, pays, host_decode(hdr, pays)
+
+    def decode_routes(tag, src, kernel, **kw):
+        """decode_device_batch of a source's frames through ``kernel``."""
+        stream, hdr, pays, ref = src
+        dec = JpegDecoderSession(hdr, **kw)
+        return dec, exercise(
+            tag, lambda: dec.decode_device_batch(pays),
+            (kernel, "K2", "LUT"), ref,
+            view=lambda out: [cropped(dec, p) for p in out],
+            one=lambda: dec.decode_device_batch(pays[:1]),
+            cpu=None if kw else lambda: ("decoder", (stream, {}),
+                                         "decode_device_batch", pays[:1]))
+
+    def encode_route(tag, params, ri, fr, kernels):
+        enc = JpegEncoderSession(params, ri)
+        rungs = ladder(enc)
+        host = JpegEncoderSession(params, ri,
+                                  entropy="native").encode_batch(fr)
+        exercise(f"{tag} ri={ri} B={enc.blocks_per_segment}",
+                 lambda: enc.encode_device_batch(fr), kernels, host,
+                 one=lambda: enc.encode_device_batch(fr[:1]),
+                 cpu=lambda: ("encoder", (params, ri, enc._seg_budget),
+                              "encode_device_batch", fr[:1]))
+        return host, rungs, enc
+
+    def transcode_route(tag, stream, pays, q, ri, kernels):
+        hdr = split_stream(stream)[0]
+        trans = JpegTranscodeSession(hdr, quality=q, restart_interval=ri)
+        rungs = ladder(trans.encoder)
+        host = JpegTranscodeSession(hdr, quality=q, restart_interval=ri,
+                                    entropy_out="host").transcode_batch(pays)
+        exercise(tag, lambda: trans.transcode_batch(pays), kernels, host,
+                 one=lambda: trans.transcode_batch(pays[:1]),
+                 cpu=lambda: ("transcode", (stream, q, ri,
+                                            trans.encoder._seg_budget),
+                              "transcode_batch", pays[:1]), unit="MPix/s")
+        return rungs, trans
+
+    # the samplings: sources, then every route
+    for i_s, (s_name, scales) in enumerate(L_SAMPLINGS.items()):
+        t_s = time.perf_counter()
+        if scales is None:
+            def params(q):
+                return Parameters.monochrome(WIDTH, HEIGHT, q)
+            chroma, mcu, mcu_w = None, 1, 8
+        else:
+            def params(q, scales=scales):
+                return Parameters.yuv(WIDTH, HEIGHT, q, scales)
+            hmax, vmax = max(scales[0::2]), max(scales[1::2])
+            chroma = (HEIGHT * scales[3] // vmax, WIDTH * scales[2] // hmax)
+            mcu = scales[0] * scales[1] + 2 * scales[2] * scales[3]
+            mcu_w = 8 * hmax
+        # libjpeg's layouts: the decode and encode routes (their routes
+        # beyond those run at the presets' layouts of the same sampling)
+        every_route = "h" not in s_name
+        fr = sampled_frames(frames[:L_FRAMES], chroma, SEED + i_s)
+        row = WIDTH // mcu_w
+        ri_fused = 32 // mcu
+        ri_split = ri_fused + 1
+        srcs = {ri: source(params(90), ri, fr) for ri in (1, 0, row)}
+        got = JpegDecoderSession(srcs[1][1]).decode_device(srcs[1][2][0])
+        worst = min(psnr(g, r) for g, r in zip(planes_of(got), fr[0]))
+        if worst <= 30.0:
+            raise RuntimeError(f"path L {s_name}: source decode PSNR "
+                               f"{worst:.2f} dB <= 30 dB")
+        dec1 = JpegDecoderSession(srcs[1][1])
+        log(f"path L {s_name}: {L_FRAMES} frames {WIDTH}x{HEIGHT} q90 at "
+            f"ri=1, 0 and {row} (one MCU row), {dec1.n_blocks} blocks a "
+            f"frame, {mcu} a MCU, {dec1.n_segments} segments at ri=1, "
+            f"B={row * mcu} at ri={row}, frame 0 at ri=1 {worst:.2f} dB "
+            f"(lowest plane PSNR); {time.perf_counter() - t_s:.1f} s")
+        lut_row(s_name, dec1)
+        decode_routes(f"{s_name} ri=1 decode_device_batch", srcs[1], "K1")
+        decode_routes(f"{s_name} ri=0 decode_device_batch", srcs[0],
+                      "K1+hooks")
+        # one MCU row a segment: auto_strategy's kernel must be K6
+        dec, _seen = decode_routes(f"{s_name} ri={row} decode_device_batch",
+                                   srcs[row], "K6")
+        log(f"path L {s_name} ri={row} (one MCU row, B="
+            f"{dec.blocks_per_segment}, {dec.n_segments * L_FRAMES} lanes, "
+            f"{dec.n_segments} a frame): auto_strategy picked K6")
+        if every_route:
+            for ri in (1, 0):
+                decode_routes(f"{s_name} ri={ri} decode_device_batch dma",
+                              srcs[ri], "K7", decode_gather="dma")
+            _stream, hdr, pays, ref = srcs[1]
+            dec = JpegDecoderSession(hdr, device_huffman="pallas")
+            exercise(f"{s_name} ri=1 decode_device pallas",
+                     lambda: dec.decode_device(pays[0]),
+                     ("K5", "K2", "LUT"), ref[0], view=planes_of,
+                     one=lambda: dec.decode_device(pays[0]), per_call=1)
+        # encode at the K4/K8 boundary: B = 32 or less, and more
+        for ri, kernels in ((ri_fused, ("K3", "K4")),
+                            (ri_split, ("K3", "K9", "K8"))):
+            encode_route(f"{s_name} encode_device_batch q75", params(75), ri,
+                         fr, kernels)
+        stream, hdr, pays, ref = srcs[1]
+        if scales is None:
+            try:
+                JpegTranscodeSession(hdr, quality=75, restart_interval=1)
+            except DecodeError as e:
+                log(f"path L {s_name}: the transcode refuses one component "
+                    f"({e}), as the JAX package's does")
+            else:
+                raise RuntimeError("path L: the transcode took a "
+                                   "monochrome stream")
+        elif every_route:
+            for ri, kernels in ((1, ("K1", "K2", "K3", "K4")),
+                                (ri_split, ("K1", "K2", "K3", "K9", "K8"))):
+                transcode_route(f"{s_name} transcode_batch ri=1 -> q75 "
+                                f"ri={ri}", stream, pays, 75, ri, kernels)
+            dec = JpegDecoderSession(hdr)
+            rgb_ref = torch.stack([dec._rgb_tail([torch.from_numpy(p).to(
+                dec.device) for p in f]) for f in ref])
+            exercise(f"{s_name} ri=1 decode_device_rgb_batch",
+                     lambda: dec.decode_device_rgb_batch(pays),
+                     ("K1", "K2", "LUT"), rgb_ref,
+                     one=lambda: dec.decode_device_rgb_batch(pays[:1]))
+        log(f"path L {s_name}: {time.perf_counter() - t_s:.1f} s")
+
+    # quality extremes: q=1 and q=100 at 4:2:0 and 4:4:4, 4 frames
+    t_q = time.perf_counter()
+    for s_name, scales, ri_split in (
+            ("4:2:0", (2, 2, 1, 1, 1, 1), 8),
+            ("4:4:4", (1, 1, 1, 1, 1, 1), 11)):
+        fr = (frames[:4] if s_name == "4:2:0" else
+              sampled_frames(frames[:4], (HEIGHT, WIDTH), SEED))
+        stream, _hdr, pays, _ref = source(
+            Parameters.yuv(WIDTH, HEIGHT, 90, scales), 1, fr)
+        for q in (1, 100):
+            params = Parameters.yuv(WIDTH, HEIGHT, q, scales)
+            for ri, kernels in ((1, ("K3", "K4")),
+                                (ri_split, ("K3", "K9", "K8"))):
+                tag = f"{s_name} encode_device_batch q{q}"
+                _host, rungs, enc = encode_route(tag, params, ri, fr,
+                                                 kernels)
+                ladder_note(f"{tag} ri={ri}", rungs, enc)
+            tag = f"{s_name} transcode_batch q90 -> q{q} ri=1"
+            rungs, trans = transcode_route(tag, stream, pays, q, 1,
+                                           ("K1", "K2", "K3", "K4"))
+            ladder_note(tag, rungs, trans.encoder)
+    log(f"path L quality extremes: {time.perf_counter() - t_q:.1f} s")
+
+    # foreign streams written by libjpeg-turbo
+    t_f = time.perf_counter()
+    for name, kernel in L_FOREIGN.items():
+        data = (pathlib.Path(FOREIGN_DIR) / name).read_bytes()
+        hdr, pay = split_stream(data)
+        pays = [pay] * L_FRAMES
+        ref = host_decode(hdr, pays[:1]) * L_FRAMES
+        dec, _seen = decode_routes(f"foreign {name} decode_device_batch",
+                                   (data, hdr, pays, ref), kernel)
+        exercise(f"foreign {name} decode_device",
+                 lambda: dec.decode_device(pay), (kernel, "K2", "LUT"),
+                 ref[0], view=planes_of, one=lambda: dec.decode_device(pay),
+                 per_call=1)
+        rgb_ref = dec._rgb_tail([torch.from_numpy(p).to(dec.device)
+                                 for p in ref[0]])
+        exercise(f"foreign {name} decode_device_rgb",
+                 lambda: dec.decode_device_rgb(pay), (kernel, "K2", "LUT"),
+                 rgb_ref, one=lambda: dec.decode_device_rgb(pay),
+                 per_call=1)
+        if not same(planes_of(decode_jpeg(data)), ref[0]):
+            raise RuntimeError(f"path L foreign {name}: decode_jpeg differs "
+                               "from the host-entropy route")
+        transcode_route(f"foreign {name} transcode_batch -> q75 ri=1", data,
+                        pays, 75, 1, (kernel, "K2", "K3", "K4"))
+        log(f"path L foreign {name}: {len(data)} bytes, "
+            f"{dec.n_segments} segment(s) of {dec.blocks_per_segment} "
+            f"blocks; decode_jpeg equal to the host-entropy route")
+    log(f"path L foreign streams: {time.perf_counter() - t_f:.1f} s")
+
+    cpu_checks()
+    log("path L rates on " + smi + ": " + "; ".join(
+        f"{tag} {rate:.2f} {unit}" for tag, rate, unit in rates))
+    log(f"path L: {len(rates)} configurations; phase 18 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return per_config
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2142,31 +2825,7 @@ def main() -> int:
     time_rows(rows, 3)
 
     # 5. end to end
-    counters = {"K1": (k1.decode_flat, "launches"),
-                "K1+hooks": (k1.decode_flat, "hook_launches"),
-                "K2": (datapath.decode_datapath, "launches"),
-                "K3": (datapath.encode_datapath, "launches"),
-                "K4": (k4.encode_segments, "launches"),
-                "K5": (k1.decode_segments, "launches"),
-                "K6": (k1.decode_segments_streamed, "launches"),
-                "K7": (k1.decode_flat_staged, "launches"),
-                "K8": (k8.pack_stuff, "launches"),
-                "K9": (k9.table_lookup, "launches"),
-                "LUT": (k1.decode_lut, "launches")}
-
-    def counted(call, must_launch):
-        """Run ``call`` with every launch count set to 0 just before and
-        read just after; the kernels in ``must_launch`` must have run."""
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-        out = call()
-        torch.cuda.synchronize()
-        seen = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
-        missing = [k for k in must_launch if seen[k] == 0]
-        if missing:
-            raise RuntimeError(f"path did not launch {missing}: {seen}")
-        return out, seen
-
+    counted = launch_counter()
     outs, seen = counted(lambda: trans.transcode_batch(payloads),
                          ("K1", "K2", "K3", "K4", "LUT"))
     launches = {k: seen[k] for k in ("K1", "K2", "K3", "K4", "LUT")}
@@ -2661,7 +3320,10 @@ def main() -> int:
     # 17. the host entropy engine against its Python tier
     host_engine_checks(sources, src_enc, smi, host_build_s)
 
-    # 18. kernels line, 19. last line
+    # 18. path L: the other samplings, quality extremes, foreign streams
+    per_config = configuration_space_path(frames, counted, smi)
+
+    # 19. kernels line, 20. last line
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name],
@@ -2669,7 +3331,8 @@ def main() -> int:
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
          "library_ms": lib_ms,
          "own_paths": {tag: seen[name] for tag, seen in path_launches.items()
-                       if seen[name]}}
+                       if seen[name]},
+         "path_L": per_config.get(name, {})}
         for name, src, replaces, ms, plain_ms, bms, by, lib_ms in timed]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1024,3 +1024,89 @@ def test_restart_interval_longer_than_the_frame_on_card(gpu, sub, w, h, ri):
                                     device=gpu, entropy_out=out
                                     ).transcode_batch([payload] * 2) == \
             [want] * 2
+
+
+def _golden_stream(sub, w, h, q, ri, seed):
+    """(frame, the golden model's stream of it) for a random frame."""
+    from video_coding_tpu_torch.common.frame import ChromaSubsampling, Frame
+    from video_coding_tpu_torch.common.plane import Plane
+    from video_coding_tpu_torch.model import encoder as menc
+
+    rng = np.random.default_rng(seed)
+    s = ChromaSubsampling[f"C{sub}"]
+    cw, ch = s.chroma_width(w), s.chroma_height(h)
+    frame = Frame(*(Plane(data=rng.integers(0, 256, (ph, pw),
+                                            dtype=np.uint8))
+                    for pw, ph in ((w, h), (cw, ch), (cw, ch))), s)
+    encode = getattr(menc, f"encode_{sub}")
+    return frame, encode(frame, q, restart_interval=ri)
+
+
+@pytest.mark.parametrize("sub,interval,q", [
+    ("420", "1", 10), ("420", "1", 95), ("420", "row", 10),
+    ("420", "row", 95), ("444", "1", 50), ("422", "1", 50)])
+def test_decode_quality_sweep_on_card(gpu, sub, interval, q):
+    """The JAX package's on-chip decode sweep (tests/test_tpu_lane.py):
+    96x64 random frames by sampling, restart interval and quality decode
+    on the card to the golden model's planes."""
+    from video_coding_tpu_torch.model import decoder as mdec
+
+    mcu_w = 8 if sub == "444" else 16
+    ri = 1 if interval == "1" else -(-96 // mcu_w)
+    _frame, stream = _golden_stream(sub, 96, 64, q, ri, 3)
+    bits = BitReader(stream)
+    header = Header.decode(bits)
+    got = JpegDecoderSession(header, device=gpu).decode_device(
+        stream[bits.bit_pos >> 3:])
+    golden = mdec.decode_a_frame(stream)
+    for p in "yuv":
+        assert np.array_equal(getattr(got, p).data, getattr(golden, p).data)
+
+
+@pytest.mark.parametrize("sub,q", [("420", 50), ("444", 95)])
+def test_encode_quality_sweep_on_card(sub, q, gpu):
+    """The JAX package's on-chip encode sweep: the device encode of a
+    96x64 random frame gives the golden model's bytes."""
+    frame, stream = _golden_stream(sub, 96, 64, q, 1, 4)
+    make = {"420": Parameters.c420, "444": Parameters.c444}[sub]
+    sess = JpegEncoderSession(make(96, 64, q), 1, device=gpu)
+    assert sess.encode_device(frame) == stream
+    assert sess.encode_device_batch([frame, frame]) == [stream, stream]
+
+
+@pytest.mark.parametrize("name,wrapper", [
+    ("webcam_422_q75_opt.jpg", "decode_flat"),
+    ("rows_420_q90_rst_row.jpg", "decode_segments_streamed"),
+    ("blocks_444_q85_rst1.jpg", "decode_flat")])
+def test_foreign_streams_on_card(gpu, name, wrapper):
+    """The committed libjpeg-turbo streams (tests/data/torch_foreign) on
+    the card: decode_device_batch of three copies and decode_device launch
+    the kernel their shape routes to (the index scan's K1 with hooks, K6,
+    K1) and give the host-entropy route's planes; the transcode to q75
+    ri=1 gives the host route's bytes."""
+    from pathlib import Path
+
+    data = (Path(__file__).parent / "data" / "torch_foreign" / name) \
+        .read_bytes()
+    bits = BitReader(data)
+    header = Header.decode(bits)
+    payload = data[bits.bit_pos >> 3:]
+    ref = JpegDecoderSession(header, device=gpu, entropy="native") \
+        .decode(payload)
+    ref = [ref.y.data, ref.u.data, ref.v.data]
+    dec = JpegDecoderSession(header, device=gpu)
+    fn = getattr(huffman_decode, wrapper)
+    before = fn.launches
+    for planes in dec.decode_device_batch([payload] * 3):
+        for c, p, r in zip(dec.components, planes, ref):
+            assert np.array_equal(
+                p[:c.actual_height, :c.actual_width].cpu().numpy(), r)
+    got = dec.decode_device(payload)
+    assert fn.launches == before + 2
+    for p, r in zip((got.y.data, got.u.data, got.v.data), ref):
+        assert np.array_equal(p, r)
+    outs = JpegTranscodeSession(header, 75, 1, device=gpu) \
+        .transcode_batch([payload] * 2)
+    assert outs == JpegTranscodeSession(header, 75, 1, device=gpu,
+                                        entropy_out="host") \
+        .transcode_batch([payload] * 2)

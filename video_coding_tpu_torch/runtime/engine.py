@@ -1306,23 +1306,33 @@ class JpegTranscodeSession:
         params = maker(frame_hdr.width, frame_hdr.height, quality)
         self.encoder = JpegEncoderSession(params, restart_interval,
                                           device=self.device, mesh=mesh)
-        for comp, scan in zip(self.decoder.components, self.encoder.scans):
-            if (comp.decoded_height, comp.decoded_width) != \
-                    (scan.height, scan.width):
+        # the preset keeps the stream's chroma sizes; its MCU may differ
+        # (libjpeg's 4:2:2 is 2x1/1x1/1x1, the preset 2x2/1x2/1x2), and so
+        # may the padded plane sizes
+        scans = self.encoder.scans
+        hmax = max(s.hscale for s in scans)
+        vmax = max(s.vscale for s in scans)
+        for comp, scan in zip(self.decoder.components, scans):
+            if (comp.actual_height, comp.actual_width) != (
+                    frame_hdr.height * scan.vscale // vmax,
+                    frame_hdr.width * scan.hscale // hmax):
                 raise DecodeError("transcode geometry mismatch")
-        # the pad region is zeroed so output bytes are identical to a
-        # host-roundtrip re-encode (load_planes pads with zeros)
         self._pad_masks = [(comp.actual_height, comp.actual_width)
                            for comp in self.decoder.components]
+        self._enc_dims = [(s.height, s.width) for s in scans]
 
     def _clean_planes(self, stacks) -> list[torch.Tensor]:
-        """Zero every plane stack outside the frame's actual size."""
+        """Each plane stack zeroed outside the frame's actual size and
+        cut or zero-padded to the encoder's plane size, so the output
+        bytes are those of a host-roundtrip re-encode (load_planes pads
+        with zeros)."""
         cleaned = []
-        for p, (ah, aw) in zip(stacks, self._pad_masks):
-            if (ah, aw) != tuple(p.shape[1:]):
-                p = p.clone()
-                p[:, ah:, :] = 0
-                p[:, :, aw:] = 0
+        for p, (ah, aw), (eh, ew) in zip(stacks, self._pad_masks,
+                                         self._enc_dims):
+            if not ah == eh == p.shape[1] or not aw == ew == p.shape[2]:
+                fitted = p.new_zeros((p.shape[0], eh, ew))
+                fitted[:, :ah, :aw] = p[:, :ah, :aw]
+                p = fitted
             cleaned.append(p)
         return cleaned
 
