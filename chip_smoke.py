@@ -40,7 +40,12 @@
     L  4:2:2, 4:4:0 (the presets' layouts and libjpeg's), 4:4:4 and
        monochrome at ri=1, 0 and one MCU row, the K4/K8 boundary, q=1 and
        q=100, and three libjpeg-turbo streams (tests/data/torch_foreign)
-       through every route.
+       through every route;
+- frames past 1080p:
+    M  3840x2160, 3996x2160 and 7680x4800 (4:2:0 and 4:4:4) through the
+       transcode, decode, RGB and encode entry points, one-MCU-row lanes
+       in each branch of the long-lane kernels (K6 staged, K6 reading
+       global memory, K5 with many CTAs, unstaged, no lane buffer).
 
     python3 chip_smoke.py
 
@@ -203,7 +208,7 @@ Phases (any failure ends the run with a nonzero exit):
                  the re-encoded bodies equal to the sources; ms a frame of
                  each tier beside nvidia-smi's name and power limit and the
                  host's lscpu model name and os.cpu_count();
- 18. path L    — at each sampling of L_SAMPLINGS, 8 synthetic 1080p frames
+ 18. path L    — at each sampling of L_SAMPLINGS, 4 synthetic 1080p frames
                  (phase 3's luma, chroma at the sampling's size) encoded on
                  the card at q90 with ri=1, 0 and one MCU row, each
                  decoded back (PSNR); then, each call with the counts
@@ -231,14 +236,44 @@ Phases (any failure ends the run with a nonzero exit):
                  version on the card on the arguments it got (K4's, K6's
                  and K8's plain loops, launch-bound on the card, run on
                  the CPU: the CPU session's calls on equal arguments);
-                 the rate (median of 3 windows of 8 frames) and each
-                 kernel's time at the 8-frame call's arguments (CUDA
+                 the rate (median of 3 windows of 4 frames) and each
+                 kernel's time at the 4-frame call's arguments (CUDA
                  events, median of 20) beside its bound; the phase's
                  seconds;
- 19. a JSON line of per-kernel numbers (with each kernel's launches on the
-     own paths A-K, and its path L times by configuration under
-     "path_L");
- 20. a last JSON line {"ok": true, "device": {...}}.
+ 19. path M    — frames past 1080p (M_SIZES): 4 frames of 3840x2160 and
+                 of 3996x2160 (a partial MCU column) and 2 of 7680x4800
+                 4:2:0 and 4:4:4 from the phase 3 generator, made by a
+                 worker process during phases 2-18; sources encoded at
+                 q90 with ri=1, 0 and one MCU row (4K also q95), each
+                 decoded back (PSNR);
+                 each call with the counts reset before and read after
+                 (its kernels must launch, no plain loop may) and every
+                 frame held against the host-entropy route: at 4K
+                 transcode_batch_iter to q75 ri=1 (K1-K4),
+                 decode_device_batch at ri=1 (K1), ri=0 (K1 with hooks)
+                 and one MCU row (q90: K6 with its rows staged; q95: K5,
+                 many CTAs, unstaged, no lane buffer), decode_gather="dma"
+                 (K7), decode_device_e2e with device_huffman="pallas" (K5),
+                 decode_device_rgb_batch, decode_scan_tpu of frame 0's
+                 one-row segments (K6 reading global memory: L is not a
+                 power of two there), encode_device_batch q75 ri=8 (K3,
+                 K9, K8); at 3996x2160 the transcode, ri=1, ri=0 and RGB;
+                 at 7680x4800 the transcode, ri=0, one MCU row (K5),
+                 decode_scan_tpu (K6 from global memory) and ri=8 (K9 +
+                 K8 at 4:2:0, K4 at 4:4:4's B = 24). Each long lane's L,
+                 branch (M_BANDS: each must be reached) and kernel are
+                 printed; K2, K3 and K9 are held whole against their plain
+                 versions on the card, the serial loops of K1 and K4-K8
+                 on a seeded subset of each call's lanes on the CPU, frame
+                 0 of each size against the golden model's decode (worker
+                 processes); kernel times beside their bounds, ms a frame,
+                 frames/s and MPix/s (median of 3 dispatches) beside
+                 phases 5, 8 and 9's 1080p rates, the budget ladder's
+                 rung, K6's sync rounds; the phase's seconds;
+ 20. a JSON line of per-kernel numbers (with each kernel's launches on the
+     own paths A-K, and its path L and path M times by configuration under
+     "path_L" and "path_M");
+ 21. a last JSON line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the reference package. Needs one
 CUDA card; exits nonzero without one.
@@ -266,19 +301,22 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def synth_frames(n: int, seed: int):
-    """n distinct 1080p 4:2:0 frames: gradients, sinusoidal texture,
-    hard-edged rectangles and sensor-like noise (uint8 y, u, v)."""
+def synth_frames(n: int, seed: int, width: int | None = None,
+                 height: int | None = None):
+    """n distinct 4:2:0 frames of width x height (WIDTH x HEIGHT, 1080p,
+    by default): gradients, sinusoidal texture, hard-edged rectangles and
+    sensor-like noise (uint8 y, u, v)."""
+    W, H = width or WIDTH, height or HEIGHT
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:HEIGHT, 0:WIDTH].astype(np.float32)
-    cy, cx = np.mgrid[0:HEIGHT // 2, 0:WIDTH // 2].astype(np.float32)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    cy, cx = np.mgrid[0:H // 2, 0:W // 2].astype(np.float32)
     frames = []
     for t in range(n):
-        y = (90 * xx / WIDTH + 60 * yy / HEIGHT + 40
+        y = (90 * xx / W + 60 * yy / H + 40
              + 30 * np.sin(2 * np.pi * (xx + 7 * t) / 97)
              * np.cos(2 * np.pi * yy / 61))
         for _ in range(24):
-            x0, y0 = rng.integers(0, WIDTH - 64), rng.integers(0, HEIGHT - 64)
+            x0, y0 = rng.integers(0, W - 64), rng.integers(0, H - 64)
             w, h = rng.integers(16, 400), rng.integers(16, 300)
             y[y0:y0 + h, x0:x0 + w] = rng.integers(0, 256)
         y += rng.normal(0, 3, y.shape)
@@ -2008,7 +2046,7 @@ def cli_paths(frames, streams, counted, smi, path_launches) -> None:
 
 # path L (phase 18): the samplings, restart intervals, quality extremes and
 # foreign streams the JAX package takes, at 1080p
-L_FRAMES = 8
+L_FRAMES = 4
 # sampling → (Y, Cb, Cr) sampling factors as Parameters.yuv takes them
 # (h, v each), or None for Parameters.monochrome; "h2v1" and "h1v2" are
 # libjpeg's layouts of 4:2:2 and 4:4:0 (an MCU of 4 blocks where the
@@ -2212,18 +2250,49 @@ def to_cpu(x):
     return x
 
 
+def record_ladder(enc) -> list:
+    """Record (budget, overflowed) of each launch of the encoder session's
+    budget ladder in the returned list."""
+    rungs, pack = [], enc._pack_graph
+
+    def recorded(qc_seg, f, msb, first=0):
+        r = pack(qc_seg, f, msb, first)
+        rungs.append((msb, bool(r[3])))
+        return r
+    enc._pack_graph = recorded
+    return rungs
+
+
+def ladder_note(tag, rungs, enc) -> None:
+    """Print the budget ladder of the session's first call."""
+    first = rungs[:[o for _, o in rungs].index(False) + 1]
+    log(f"{tag}: the first call tried {[b for b, _ in first]} bytes a "
+        f"segment, {len(first) - 1} launch(es) overflowed before rung "
+        f"{len(first)} held (rung 1 = B*24+64 = "
+        f"{enc.blocks_per_segment * 24 + 64}); budget locked at "
+        f"{enc._seg_budget}"
+        + ("; rung 1 did NOT overflow at q=100"
+           if "q100" in tag and len(first) == 1 else ""))
+
+
+def planes_of(frame) -> list:
+    """A decoded Frame's (or list of Planes') arrays."""
+    return [p.data for p in ([frame.y, frame.u, frame.v]
+                             if hasattr(frame, "y") else frame)]
+
+
 def configuration_space_path(frames, counted, smi) -> dict:
     """Phase 18 (path L): every route at the samplings, restart intervals,
     quality extremes and foreign streams the JAX package takes, at 1080p.
-    For each configuration: the entry point's call of 8 frames with the
+    For each configuration: the entry point's call of L_FRAMES with the
     launch counts reset before and read after (the kernels named must
     launch, no plain loop may), every frame equal to the host-entropy
     route; a dispatch of frame 0 with every kernel it launched held
     against its plain version on the card on the arguments it got (K4,
     K6 and K8, whose plain loops are launch-bound on the card, on the CPU:
     CPU_PLAIN), and its result held against the same session on the CPU;
-    the rate (median of 3 windows of 8 frames) and each kernel's time at
-    the 8-frame call's arguments beside its bound. The CPU sessions run
+    the rate (median of 3 windows of L_FRAMES) and each kernel's time at
+    that call's arguments beside its bound. The CPU sessions run
     after the card's work, in worker processes, so they do not load the
     host while rates are taken. Returns {kernel: {configuration:
     numbers}} for the kernels line."""
@@ -2398,33 +2467,6 @@ def configuration_space_path(frames, counted, smi) -> dict:
         return [planes_of(f) for f in JpegDecoderSession(
             hdr, entropy="native").decode_batch(pays)]
 
-    def planes_of(frame):
-        return [p.data for p in ([frame.y, frame.u, frame.v]
-                                 if hasattr(frame, "y") else frame)]
-
-    def ladder(enc):
-        """Record (budget, overflowed) of each launch of the session's
-        budget ladder in the returned list."""
-        rungs, pack = [], enc._pack_graph
-
-        def recorded(qc_seg, f, msb, first=0):
-            r = pack(qc_seg, f, msb, first)
-            rungs.append((msb, bool(r[3])))
-            return r
-        enc._pack_graph = recorded
-        return rungs
-
-    def ladder_note(tag, rungs, enc):
-        """Print the budget ladder of the session's first call."""
-        first = rungs[:[o for _, o in rungs].index(False) + 1]
-        log(f"path L {tag}: the first call tried {[b for b, _ in first]} "
-            f"bytes a segment, {len(first) - 1} launch(es) overflowed "
-            f"before rung {len(first)} held (rung 1 = B*24+64 = "
-            f"{enc.blocks_per_segment * 24 + 64}); budget locked at "
-            f"{enc._seg_budget}"
-            + ("; rung 1 did NOT overflow at q=100"
-               if "q100" in tag and len(first) == 1 else ""))
-
     def source(params, ri, fr):
         """(stream, header, payloads, host-route planes) of the frames
         encoded on the card."""
@@ -2447,7 +2489,7 @@ def configuration_space_path(frames, counted, smi) -> dict:
 
     def encode_route(tag, params, ri, fr, kernels):
         enc = JpegEncoderSession(params, ri)
-        rungs = ladder(enc)
+        rungs = record_ladder(enc)
         host = JpegEncoderSession(params, ri,
                                   entropy="native").encode_batch(fr)
         exercise(f"{tag} ri={ri} B={enc.blocks_per_segment}",
@@ -2460,7 +2502,7 @@ def configuration_space_path(frames, counted, smi) -> dict:
     def transcode_route(tag, stream, pays, q, ri, kernels):
         hdr = split_stream(stream)[0]
         trans = JpegTranscodeSession(hdr, quality=q, restart_interval=ri)
-        rungs = ladder(trans.encoder)
+        rungs = record_ladder(trans.encoder)
         host = JpegTranscodeSession(hdr, quality=q, restart_interval=ri,
                                     entropy_out="host").transcode_batch(pays)
         exercise(tag, lambda: trans.transcode_batch(pays), kernels, host,
@@ -2568,11 +2610,11 @@ def configuration_space_path(frames, counted, smi) -> dict:
                 tag = f"{s_name} encode_device_batch q{q}"
                 _host, rungs, enc = encode_route(tag, params, ri, fr,
                                                  kernels)
-                ladder_note(f"{tag} ri={ri}", rungs, enc)
+                ladder_note(f"path L {tag} ri={ri}", rungs, enc)
             tag = f"{s_name} transcode_batch q90 -> q{q} ri=1"
             rungs, trans = transcode_route(tag, stream, pays, q, 1,
                                            ("K1", "K2", "K3", "K4"))
-            ladder_note(tag, rungs, trans.encoder)
+            ladder_note(f"path L {tag}", rungs, trans.encoder)
     log(f"path L quality extremes: {time.perf_counter() - t_q:.1f} s")
 
     # foreign streams written by libjpeg-turbo
@@ -2612,11 +2654,520 @@ def configuration_space_path(frames, counted, smi) -> dict:
     return per_config
 
 
+# path M (phase 19): frames past 1080p — name: (width, height, frames a
+# dispatch); stdsizes' "4k", "dc4k1" (249.75 MCUs wide) and "whuxga"
+M_SIZES = {"4k": (3840, 2160, 4), "dc4k1": (3996, 2160, 4),
+           "whuxga": (7680, 4800, 2)}
+# the launch-bound plain loops path M holds on a subset of a call's lanes,
+# on the CPU: the longest lane, the first and last M_EDGE and M_SAMPLE
+# drawn with a seed
+M_LANE_PLAIN = ("K1", "K4", "K5", "K6", "K7", "K8")
+M_EDGE, M_SAMPLE = 64, 256
+# the three branches of the long-lane kernels path M must reach
+M_BANDS = ("K6 staged", "K6 from global memory",
+           "K5 many CTAs, unstaged, no lane buffer")
+
+
+def m_frames(out_dir: str, sizes: dict) -> dict:
+    """Run in a worker process: path M's frames — the phase 3 generator at
+    each size of ``sizes`` (M_SIZES), seed SEED, and the whuxga frames'
+    4:4:4 form (sampled_frames) — written as .npz files under
+    ``out_dir``. Returns {size: (path of its frames, path of their 4:4:4
+    form or None)}."""
+    import pathlib
+
+    out = pathlib.Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for name, (w, h, n) in sizes.items():
+        frames = synth_frames(n, SEED, w, h)
+        forms = [frames] + ([sampled_frames(frames, (h, w), SEED)]
+                            if name == "whuxga" else [])
+        paths[name] = [None, None]
+        for i, fr in enumerate(forms):
+            paths[name][i] = str(out / f"{name}_{i}.npz")
+            np.savez(paths[name][i], *[p for f in fr for p in f])
+    return paths
+
+
+def load_frames(path) -> list:
+    """m_frames' frames from one of its files: (y, u, v) tuples."""
+    if path is None:
+        return None
+    with np.load(path) as z:
+        planes = [z[f"arr_{i}"] for i in range(len(z.files))]
+    return [tuple(planes[i:i + 3]) for i in range(0, len(planes), 3)]
+
+
+def golden_planes(stream: bytes) -> list:
+    """Run in a worker process: the golden model's decode of a JPEG
+    stream (pure Python and numpy), as cropped planes."""
+    from video_coding_tpu_torch.model.decoder import decode_a_frame
+
+    f = decode_a_frame(stream)
+    return [f.y.data, f.u.data, f.v.data]
+
+
+def branch_constants() -> dict:
+    """K5's and K6's compile-time branch constants, read from their
+    sources: K6 stages rows of up to kRowStage bytes in shared memory; K5
+    stages a CTA's kWarps * kLanesPerWarp rows up to kStageBytes and keeps
+    its blocks in shared memory up to kLaneBufBytes."""
+    import re
+
+    from video_coding_tpu_torch import kernels
+
+    def read(source, names):
+        text = (kernels.CSRC / source).read_text()
+        return {n: int(re.search(rf"constexpr int {n} = (\d+);", text)
+                       .group(1)) for n in names}
+
+    c = read("huffman_decode_streamed.cu", ("kRowStage",))
+    c.update(read("huffman_decode_padded.cu",
+                  ("kWarps", "kLanesPerWarp", "kStageBytes",
+                   "kLaneBufBytes")))
+    c["kLanes"] = c["kWarps"] * c["kLanesPerWarp"]
+    return c
+
+
+def lane_band(name: str, S: int, L: int, B: int, consts: dict) -> str:
+    """The branch of K6 or K5 that an (S, L) matrix of B-block lanes
+    takes (csrc/huffman_decode_streamed.cu, huffman_decode_padded.cu)."""
+    from video_coding_tpu_torch.entropy.decode_tables import max_win_bs
+
+    if name == "K6":
+        if L <= consts["kRowStage"]:
+            return M_BANDS[0]
+        return M_BANDS[1] + ("" if max_win_bs(L) else
+                             ", past the max_win_bs limit")
+    lanes = consts["kLanes"]
+    staged = 4 * ((lanes * L + 6) // 4 + 2) <= consts["kStageBytes"]
+    lane_buf = lanes * (2 * (B * 64 + 2) + 4 * B) <= consts["kLaneBufBytes"]
+    if -(-S // lanes) > 1 and not staged and not lane_buf:
+        return M_BANDS[2]
+    return (f"K5 {-(-S // lanes)} CTA(s), "
+            f"{'staged' if staged else 'unstaged'}, "
+            f"{'lane buffer' if lane_buf else 'no lane buffer'}")
+
+
+def lane_subset(name: str, a, k, out, seed: int):
+    """One kernel call cut to a subset of its lanes for its plain version
+    on the CPU: the longest lane, the first and last M_EDGE, and M_SAMPLE
+    drawn from ``seed``. Returns (lanes, arguments, keywords, the
+    kernel's result on those lanes), all on the host."""
+    if name in ("K1", "K7"):
+        rows, length = a[1].shape[0], a[2]
+    elif name in ("K5", "K6"):
+        nz = (a[0] != 0).to(torch.int8)
+        rows = a[0].shape[0]
+        length = a[0].shape[1] - nz.flip(1).argmax(1)     # last nonzero
+    elif name == "K4":
+        rows, length = a[0].shape[0], out[1]
+    else:                                                  # K8
+        rows, length = a[2].shape[0], out[1]
+    rng = np.random.default_rng(seed)
+    lanes = np.unique(np.concatenate([
+        [int(torch.argmax(length))], np.arange(min(M_EDGE, rows)),
+        np.arange(max(rows - M_EDGE, 0), rows),
+        rng.choice(rows, min(rows, M_SAMPLE), replace=False)]))
+    sel = torch.from_numpy(lanes).to(length.device)
+    per_lane = {"K1": (1, 2, 3), "K7": (1, 2, 3), "K5": (0, 1),
+                "K6": (0, 1), "K4": (0, 1), "K8": (0, 1, 2, 3)}[name]
+    args = [x[sel] if i in per_lane else x for i, x in enumerate(a)]
+    kw = {n: (v[sel] if isinstance(v, torch.Tensor) else v)
+          for n, v in k.items()}
+    got = (out[sel] if isinstance(out, torch.Tensor)
+           else (out[0][sel], out[1][sel], out[2]))
+    return lanes, to_cpu(args), {n: to_cpu(v) for n, v in kw.items()}, \
+        to_cpu(got)
+
+
+def lane_plain(job):
+    """Run in a worker process: a kernel's plain version on a subset of a
+    call's lanes (lane_subset) against the kernel's result on them.
+    Returns (equal, seconds)."""
+    from video_coding_tpu_torch.entropy import huffman_decode as k1
+    from video_coding_tpu_torch.entropy import huffman_encode as k4
+    from video_coding_tpu_torch.entropy import pack_stuff as k8
+
+    torch.set_num_threads(1)
+    name, args, kw, got = job
+    plain = {"K1": k1.decode_flat_plain, "K7": k1.decode_flat_staged_plain,
+             "K5": k1.decode_segments_plain,
+             "K6": k1.decode_segments_streamed_plain,
+             "K4": k4.encode_segments_plain, "K8": k8.pack_stuff_plain}[name]
+    t0 = time.perf_counter()
+    ref = plain(*args, **kw)
+    if isinstance(got, torch.Tensor):
+        ok = torch.equal(got, ref)
+    else:        # (bytes, lengths, overflow): the kernel's flag covers
+        ok = (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+              and bool(ref[2]) <= bool(got[2]))    # every lane, not these
+    return ok, time.perf_counter() - t0
+
+
+def large_frame_path(counted, smi, rates_1080: dict, m_made) -> dict:
+    """Phase 19 (path M): frames past 1080p — stdsizes' 4k (3840x2160),
+    dc4k1 (3996x2160, a partial MCU column) and whuxga (7680x4800, 4:2:0
+    and 4:4:4) — through the entry points, at one MCU row a segment
+    across the three branches of the long-lane kernels (M_BANDS). Each
+    call runs with the launch counts reset before and read after (its
+    kernels must launch, no plain loop may) and every frame is held
+    against the host-entropy route (decode_batch / decode_entropy with
+    the engine, encode_batch, transcode_batch with entropy_out="host");
+    each kernel it launched against its plain version on the arguments
+    it got: K2, K3 and K9 whole on the card, the launch-bound loops
+    (M_LANE_PLAIN) on a subset of the lanes on the CPU; frame 0 of each
+    size against the golden model (model/), on the CPU. Kernels are timed
+    on the call's arguments beside their bounds, the call's wall time
+    (median of 3) gives frames/s and MPix/s. The frames come from
+    ``m_made`` (m_frames' future); the CPU checks run in worker
+    processes. Returns {kernel: {configuration: numbers}} for the kernels
+    line."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    from types import SimpleNamespace
+
+    from video_coding_tpu_torch.entropy import huffman_decode as k1
+    from video_coding_tpu_torch.entropy.decode_tables import auto_strategy
+    from video_coding_tpu_torch.entropy.scan import destuff_segments
+    from video_coding_tpu_torch.model.header import Parameters
+    from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
+                                                       JpegEncoderSession,
+                                                       JpegTranscodeSession)
+
+    t_phase = time.perf_counter()
+    sites = kernel_sites()
+    consts = branch_constants()
+    per_config: dict = {}
+    rates, lane_jobs, golden, bands = [], [], [], {}
+    workers = max(1, min(7, os.cpu_count() - 1))
+    pool = ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+
+    def exercise(tag, call, must, ref, view, size, n_frames, band=None,
+                 rate=None):
+        """One configuration (see the docstring); ``band`` is the branch
+        its K5 or K6 launch must take, ``rate`` a call that times the
+        entry point (default: the call itself, median of 3)."""
+        t_all = time.perf_counter()
+        (out, spies), seen = counted_without_plain_loops(
+            counted, lambda: spied(sites, call), must)
+        if not same(view(out), ref):
+            raise RuntimeError(f"path M {tag}: differs from the "
+                               "host-entropy route")
+        del out
+        notes = []
+        for name, spy in spies.items():
+            a, k = spy.args
+            key = "K1+hooks" if name == "K1" and \
+                k.get("init_bitpos") is not None else name
+            if name in M_LANE_PLAIN:
+                lanes, *job = lane_subset(name, a, k, spy.out,
+                                          SEED + len(lane_jobs))
+                lane_jobs.append((tag, key, len(lanes), (name, *job)))
+            else:
+                plain = sites[name][2](*a, **k)
+                if not torch.equal(spy.out, plain):
+                    raise RuntimeError(f"path M {tag}: {name} differs from "
+                                       "its plain version on the session's "
+                                       "arguments")
+                del plain
+            fn = (lambda fn=spy.fn, a=a, k=k: fn(*a, **k))
+            ms = time_ms(fn, 20 if time_ms(fn, 1) < 5 else 5)
+            bms, by = bound_ms(*kernel_work(name, a, k, spy.out))
+            per_config.setdefault(key, {})[tag] = {
+                "ms": ms, "bound_ms": bms, "bound_by": by,
+                "launches": seen[key]}
+            notes.append(f"{key} {ms:.4f} ms (bound {bms:.4f}, {by}, "
+                         f"{bms / ms:.1%})")
+            if name in ("K5", "K6"):
+                S, L = a[0].shape
+                B = k["blocks_per_segment"]
+                got = lane_band(name, S, L, B, consts)
+                last = int((a[0] != 0).to(torch.int8).flip(1).argmax(1)
+                           .min())
+                notes.append(f"{name} on ({S}, {L}) lanes of {B} blocks, "
+                             f"the longest {L - last} bytes: {got}; auto "
+                             f"picks {auto_strategy(S, L, B)}")
+                if band is not None and got != band:
+                    raise RuntimeError(f"path M {tag}: {name} took '{got}', "
+                                       f"not '{band}'")
+                bands.setdefault(got, []).append((tag, L))
+            if name == "K6":
+                st = spy.fn.stats.to(torch.float64)
+                notes.append(f"K6 sync rounds mean "
+                             f"{float(st[:, 0].mean()):.2f} max "
+                             f"{float(st[:, 0].max()):.0f}, "
+                             f"{float(st[:, 1].mean()):.1f} subsequences "
+                             f"a row")
+        del spies
+        t_rate = time.perf_counter()
+        if rate is None:
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            wall = sorted(walls)[1] / n_frames
+        else:
+            wall = rate()
+        w, h, _ = M_SIZES[size.split()[0]]
+        rates.append((tag, 1 / wall, w * h / wall / 1e6))
+        log(f"path M {tag}: launches "
+            f"{ {n: v for n, v in seen.items() if v} }, every frame equal "
+            f"to the host-entropy route; {wall * 1e3:.2f} ms a frame, "
+            f"{1 / wall:.2f} frames/s, {w * h / wall / 1e6:.1f} MPix/s "
+            f"(median of 3 dispatches of {n_frames}); "
+            f"{'; '.join(notes)} on {smi}; {time.perf_counter() - t_all:.1f}"
+            f" s (rate {time.perf_counter() - t_rate:.1f})")
+
+    def source(size, make, q, ri, frames, device_route=True):
+        """The frames encoded (encode_device_batch, or the session's host
+        route where the device packer would be the gather packer: ri=0
+        and one MCU row), their first decode session and the host-entropy
+        route's planes; frame 0's PSNR must pass 30 dB."""
+        t0 = time.perf_counter()
+        w, h, _ = M_SIZES[size.split()[0]]
+        enc = JpegEncoderSession(make(w, h, q), ri)
+        streams = (enc.encode_device_batch(frames) if device_route
+                   else enc.encode_batch(frames))
+        hdr, _ = split_stream(streams[0])
+        pays = [split_stream(x)[1] for x in streams]
+        dec = JpegDecoderSession(hdr)
+        ref = [planes_of(f) for f in dec.decode_batch(pays)]
+        worst = min(psnr(g, r) for g, r in zip(ref[0], frames[0]))
+        if worst <= 30.0:
+            raise RuntimeError(f"path M {size}: source decode PSNR "
+                               f"{worst:.2f} dB <= 30 dB")
+        segs = destuff_segments(pays[0])
+        log(f"path M {size} source q{q} ri={ri}: "
+            f"{len(frames)} frames, {min(map(len, streams))}.."
+            f"{max(map(len, streams))} bytes, {dec.n_blocks} blocks and "
+            f"{dec.n_segments} segment(s) of {dec.blocks_per_segment} "
+            f"blocks a frame, frame 0's longest segment "
+            f"{max(map(len, segs))} bytes, {worst:.2f} dB (lowest plane "
+            f"PSNR); {time.perf_counter() - t0:.1f} s")
+        return SimpleNamespace(stream=streams[0], hdr=hdr, pays=pays,
+                               ref=ref, dec=dec)
+
+    def host_transcode(trans, pays):
+        """transcode_batch of the same session with entropy_out="host":
+        K3's coefficients coded by the host entropy engine."""
+        trans.entropy_out = "host"
+        try:
+            return trans.transcode_batch(pays)
+        finally:
+            trans.entropy_out = "device"
+
+    def iter_rate(trans, pays, n):
+        """Seconds a frame of transcode_batch_iter (n frames a chunk, two
+        in flight) over 2n frames, median of 3 windows."""
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in trans.transcode_batch_iter(pays * 2, batch=n, depth=2):
+                pass
+            walls.append((time.perf_counter() - t0) / (2 * n))
+        return sorted(walls)[1]
+
+    def transcode(tag, size, src, n, iterated=False):
+        trans = JpegTranscodeSession(src.hdr, quality=75, restart_interval=1)
+        rungs = record_ladder(trans.encoder)
+        host = host_transcode(trans, src.pays)
+        exercise(f"{tag} transcode_batch{'_iter' if iterated else ''} "
+                 f"ri=1 -> q75 ri=1", lambda: trans.transcode_batch(src.pays),
+                 ("K1", "K2", "K3", "K4", "LUT"), host, lambda o: o, size, n,
+                 rate=(lambda: iter_rate(trans, src.pays, n)) if iterated
+                 else None)
+        ladder_note(f"path M {tag} transcode", rungs, trans.encoder)
+
+    def decode(tag, size, src, kernel, n, dec=None, band=None):
+        dec = dec or src.dec
+        exercise(tag, lambda: dec.decode_device_batch(src.pays),
+                 (kernel, "K2", "LUT"), src.ref,
+                 lambda out: [cropped(dec, p) for p in out], size, n,
+                 band=band)
+
+    def scan_tpu(tag, size, src, band):
+        """decode_scan_tpu ("auto") of frame 0's segments: a lane matrix
+        L = the longest segment + 4 bytes wide, not a power of two."""
+        segs = destuff_segments(src.pays[0])
+        d = src.dec
+        exercise(f"{tag} decode_scan_tpu frame 0",
+                 lambda: k1.decode_scan_tpu(segs, d.comp_idx,
+                                            d.blocks_per_segment, d.tables),
+                 ("K6", "LUT"), d.decode_entropy(src.pays[0]), lambda o: o,
+                 size, 1, band=band)
+
+    def rgb(tag, size, src, n):
+        dec = src.dec
+        ref = torch.stack([dec._rgb_tail([torch.from_numpy(p).to(dec.device)
+                                          for p in f]) for f in src.ref])
+        exercise(f"{tag} decode_device_rgb_batch ri=1",
+                 lambda: dec.decode_device_rgb_batch(src.pays),
+                 ("K1", "K2", "LUT"), ref, lambda o: o, size, n)
+
+    def encode(tag, size, make, frames, n):
+        w, h, _ = M_SIZES[size]
+        enc = JpegEncoderSession(make(w, h, 75), 8)
+        rungs = record_ladder(enc)
+        host = enc.encode_batch(frames)
+        kernels = (("K3", "K4") if enc.blocks_per_segment <= 32
+                   else ("K3", "K9", "K8"))
+        exercise(f"{tag} encode_device_batch q75 ri=8 "
+                 f"B={enc.blocks_per_segment}",
+                 lambda: enc.encode_device_batch(frames), kernels, host,
+                 lambda o: o, size, n)
+        ladder_note(f"path M {tag} encode", rungs, enc)
+
+    try:
+        # the frames, made by a worker process while the other phases ran
+        t0 = time.perf_counter()
+        gen = {name: tuple(map(load_frames, paths))
+               for name, paths in m_made.result().items()}
+        log(f"path M: {', '.join(f'{len(g[0])} {n}' for n, g in gen.items())}"
+            f" frames (and the whuxga frames as 4:4:4) made in a worker "
+            f"process during phases 2-18; waited for and loaded in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # 4k 3840x2160 4:2:0, 4 frames a dispatch
+        fr = gen.pop("4k")[0]
+        w, h, n = M_SIZES["4k"]
+        c420 = Parameters.c420
+        s1 = source("4k", c420, 90, 1, fr)
+        golden.append(("4k", pool.submit(golden_planes, s1.stream),
+                       s1.ref[0]))
+        transcode("4k", "4k", s1, n, iterated=True)
+        decode("4k ri=1 decode_device_batch", "4k", s1, "K1", n)
+        decode("4k ri=1 decode_device_batch dma", "4k", s1, "K7", n,
+               dec=JpegDecoderSession(s1.hdr, decode_gather="dma"))
+        pal = JpegDecoderSession(s1.hdr, device_huffman="pallas")
+        exercise("4k ri=1 decode_device_e2e frame 0 pallas",
+                 lambda: pal.decode_device_e2e(s1.pays[0]),
+                 ("K5", "K2", "LUT"), s1.ref[0],
+                 lambda out: cropped(pal, out), "4k", 1)
+        rgb("4k", "4k", s1, n)
+        s0 = source("4k", c420, 90, 0, fr, device_route=False)
+        decode("4k ri=0 decode_device_batch", "4k", s0, "K1+hooks", n)
+        row = w // 16
+        for q, kernel, band in ((90, "K6", M_BANDS[0]),
+                                (95, "K5", M_BANDS[2])):
+            sr = source("4k", c420, q, row, fr, device_route=False)
+            decode(f"4k q{q} ri={row} decode_device_batch", "4k", sr,
+                   kernel, n, band=band)
+            if q == 95:
+                scan_tpu(f"4k q95 ri={row}", "4k", sr, M_BANDS[1])
+        encode("4k", "4k", c420, fr, n)
+        del s1, s0, sr, pal, fr
+
+        # dc4k1 3996x2160 4:2:0 (249.75 MCUs wide), 4 frames a dispatch
+        fr = gen.pop("dc4k1")[0]
+        n = M_SIZES["dc4k1"][2]
+        s1 = source("dc4k1", c420, 90, 1, fr)
+        golden.append(("dc4k1", pool.submit(golden_planes, s1.stream),
+                       s1.ref[0]))
+        transcode("dc4k1", "dc4k1", s1, n)
+        decode("dc4k1 ri=1 decode_device_batch", "dc4k1", s1, "K1", n)
+        rgb("dc4k1", "dc4k1", s1, n)
+        s0 = source("dc4k1", c420, 90, 0, fr, device_route=False)
+        decode("dc4k1 ri=0 decode_device_batch", "dc4k1", s0, "K1+hooks", n)
+        del s1, s0, fr
+
+        # whuxga 7680x4800 4:2:0 and 4:4:4, 2 frames a dispatch
+        fr420, fr444 = gen.pop("whuxga")
+        w, h, n = M_SIZES["whuxga"]
+        for sampling, fr, make, mcu_w in (
+                ("4:2:0", fr420, c420, 16),
+                ("4:4:4", fr444, Parameters.c444, 8)):
+            tag = f"whuxga {sampling}"
+            s1 = source(tag, make, 90, 1, fr)
+            transcode(tag, "whuxga", s1, n)
+            del s1
+            s0 = source(tag, make, 90, 0, fr, device_route=False)
+            decode(f"{tag} ri=0 decode_device_batch", "whuxga", s0,
+                   "K1+hooks", n)
+            del s0
+            row = w // mcu_w
+            sr = source(tag, make, 90, row, fr, device_route=False)
+            if sampling == "4:2:0":
+                golden.append(("whuxga", pool.submit(golden_planes,
+                                                     sr.stream), sr.ref[0]))
+            decode(f"{tag} ri={row} decode_device_batch", "whuxga", sr,
+                   "K5", n, band=M_BANDS[2])
+            scan_tpu(f"{tag} ri={row}", "whuxga", sr, M_BANDS[1])
+            del sr
+            encode(tag, "whuxga", make, fr, n)
+        del fr420, fr444, fr
+        t_card = time.perf_counter() - t_phase
+
+        # the CPU checks: the plain loops on their lane subsets, the golden
+        # model's decodes
+        t0 = time.perf_counter()
+        # the longest lanes first: a plain loop's steps follow them
+        lane_jobs.sort(key=lambda j: -j[3][2].get("blocks_per_segment", 0))
+        futs = [(tag, key, n_lanes, pool.submit(lane_plain, job))
+                for tag, key, n_lanes, job in lane_jobs]
+        lane_jobs.clear()
+        slowest = 0.0
+        for tag, key, n_lanes, fut in futs:
+            ok, secs = fut.result()
+            slowest = max(slowest, secs)
+            if not ok:
+                raise RuntimeError(f"path M {tag}: {key} differs from its "
+                                   f"plain version on {n_lanes} of its lanes")
+        for size, fut, ref in golden:
+            if not same(fut.result(), ref):
+                raise RuntimeError(f"path M {size}: frame 0 differs from the "
+                                   "golden model's decode")
+        log(f"path M: {len(futs)} kernel calls equal to their plain versions "
+            f"on subsets of their lanes (the longest, the first and last "
+            f"{M_EDGE}, {M_SAMPLE} drawn; on the CPU, slowest "
+            f"{slowest:.1f} s); frame 0 of {', '.join(g[0] for g in golden)} "
+            f"equal to the golden model's decode; {workers} worker "
+            f"processes, {time.perf_counter() - t0:.1f} s after the card's "
+            f"{t_card:.1f} s")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    missing = [b for b in M_BANDS if b not in bands]
+    if missing:
+        raise RuntimeError(f"path M reached no configuration in {missing}")
+    log("path M bands: " + "; ".join(
+        f"{b}: {', '.join(f'{t} (L={L})' for t, L in v)}"
+        for b, v in bands.items()))
+    log("path M rates on " + smi + ": " + "; ".join(
+        f"{tag} {fps:.2f} frames/s, {mpix:.1f} MPix/s"
+        for tag, fps, mpix in rates) + "; beside 1080p in this run: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rates_1080.items()))
+    log(f"path M: {len(rates)} configurations; phase 19 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return per_config
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
 
+    from video_coding_tpu_torch import kernels
+
+    # path M's frames (~0.5 GB) are made meanwhile by one worker process,
+    # which writes them under build/: sent back through the pool they would
+    # be unpickled in this process while later phases time their calls
+    with ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as maker:
+        return run_phases(maker.submit(
+            m_frames, str(kernels.BUILD_DIR.parent / "path_m"), M_SIZES))
+
+
+def run_phases(m_made) -> int:
+    """Phases 1-21 (the module docstring); ``m_made`` is the future of
+    path M's frames (m_frames)."""
     from video_coding_tpu_torch import kernels
     from video_coding_tpu_torch.common.bitstream import BitReader
     from video_coding_tpu_torch.common.frame import ChromaSubsampling, Frame
@@ -2865,6 +3416,8 @@ def main() -> int:
         return windows, [WIDTH * HEIGHT / w / 1e6 for w in windows]
 
     windows, mpix = transcode_rate(trans)
+    # the 1080p rates path M's stand beside
+    rates_1080 = {"transcode_batch_iter MPix/s": mpix[1]}
     log(f"transcode_batch_iter {WIDTH}x{HEIGHT} q75 ri=1 F={FRAMES}: median "
         f"{mpix[1]:.2f} MPix/s (windows {', '.join(f'{m:.2f}' for m in mpix)}"
         f"; {windows[1] * 1e3:.2f} ms/frame) on {smi}")
@@ -3087,6 +3640,7 @@ def main() -> int:
 
     for tag, pay, n in (("A", pay_a, FRAMES), ("B", pay_b, 2 * FRAMES)):
         w = fps(sessions[tag], pay, n)
+        rates_1080[f"path {tag} frames/s"] = w[1]
         log(f"decode_device_batch_iter path {tag} {WIDTH}x{HEIGHT} q90 "
             f"F={FRAMES}: median {w[1]:.2f} frames/s (windows "
             f"{', '.join(f'{x:.2f}' for x in w)}; {n} frames a window) "
@@ -3190,6 +3744,7 @@ def main() -> int:
         return 2 * FRAMES / (time.perf_counter() - t)
 
     w = sorted(enc_window() for _ in range(3))
+    rates_1080["path E frames/s"] = w[1]
     log(f"encode_device_batch path E {WIDTH}x{HEIGHT} q75 ri={RI_E} "
         f"F={FRAMES}: median {w[1]:.2f} frames/s (windows "
         f"{', '.join(f'{x:.2f}' for x in w)}) on {smi}")
@@ -3323,7 +3878,10 @@ def main() -> int:
     # 18. path L: the other samplings, quality extremes, foreign streams
     per_config = configuration_space_path(frames, counted, smi)
 
-    # 19. kernels line, 20. last line
+    # 19. path M: frames past 1080p
+    per_config_m = large_frame_path(counted, smi, rates_1080, m_made)
+
+    # 20. kernels line, 21. last line
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name],
@@ -3332,7 +3890,8 @@ def main() -> int:
          "library_ms": lib_ms,
          "own_paths": {tag: seen[name] for tag, seen in path_launches.items()
                        if seen[name]},
-         "path_L": per_config.get(name, {})}
+         "path_L": per_config.get(name, {}),
+         "path_M": per_config_m.get(name, {})}
         for name, src, replaces, ms, plain_ms, bms, by, lib_ms in timed]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1110,3 +1110,95 @@ def test_foreign_streams_on_card(gpu, name, wrapper):
     assert outs == JpegTranscodeSession(header, 75, 1, device=gpu,
                                         entropy_out="host") \
         .transcode_batch([payload] * 2)
+
+
+def _long_rows(gpu, S, L, seed):
+    """(S, L) rows of one-MCU-row segments of a 3840-wide 4:2:0 q90 frame
+    (1,440 blocks, ~13.5 KB each, encoded on the card): every other row
+    with random bytes after its segment up to L (read by K6's guessed
+    subsequences, never by the true decode), the rest zero-padded; and
+    the segments' decode session."""
+    from chip_smoke import synth_frames
+
+    enc = JpegEncoderSession(Parameters.c420(3840, 16 * S, 90), 240,
+                             device=gpu)
+    stream = enc.encode_device_batch(synth_frames(1, seed, 3840, 16 * S))[0]
+    bits = BitReader(stream)
+    dec = JpegDecoderSession(Header.decode(bits), device=gpu)
+    parts, lens = _destuff_parts([stream[bits.bit_pos >> 3:]], S)
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((S, L), np.uint8)
+    starts = np.concatenate([[0], np.cumsum(lens[0])])
+    for s in range(S):
+        n = int(lens[0][s])
+        assert n + 4 <= L
+        rows[s, :n] = parts[0][starts[s]:starts[s] + n]
+        if s % 2:
+            rows[s, n + 4:] = rng.integers(0, 256, L - n - 4)
+    return rows, dec
+
+
+@pytest.mark.parametrize("L", [16383, 16385, "limit"])
+def test_streamed_kernel_on_long_rows(gpu, L):
+    """K6 on rows around its shared-memory staging bound (kRowStage =
+    16,384 bytes: staged at 16,383, read from global memory at 16,385) and
+    at the longest row the auto route gives it (the max_win_bs limit,
+    28,675 bytes), with the matrix 16-byte aligned and one byte off (odd
+    L: rows alternate 4-byte alignment either way), equal to its plain
+    version (run on the host: a row of 1,440 blocks is ~23,000 steps)."""
+    from video_coding_tpu_torch.entropy.decode_tables import max_win_bs
+
+    if L == "limit":
+        L = max(n for n in range(16385, 65536) if max_win_bs(n))
+        assert L == 28675 and not max_win_bs(L + 1)
+    S, B = 8, 1440
+    rows, dec = _long_rows(gpu, S, L, seed=L)
+    st = dec.state
+    segb = np.full(S, B, np.int32)
+    segb[2] = B // 2
+    tabs = tuple(t.cpu() for t in (st.lo, st.hi, st.offset, st.values))
+    kw = dict(blocks_per_segment=B, n_components=3)
+    sched = dec._comp_sched.cpu()
+    ref = huffman_decode.decode_segments_streamed_plain(
+        torch.from_numpy(rows), torch.from_numpy(segb), sched, *tabs, **kw)
+    buf = torch.zeros(S * L + 32, dtype=torch.uint8, device=gpu)
+    for shift in (0, 1):
+        view = buf[16 + shift:16 + shift + S * L].view(S, L)
+        view.copy_(torch.from_numpy(rows))
+        got = huffman_decode.decode_segments_streamed(
+            view, torch.from_numpy(segb).to(gpu), sched.to(gpu),
+            *(t.to(gpu) for t in tabs), **kw)
+        assert torch.equal(got.cpu(), ref)
+        rounds = huffman_decode.decode_segments_streamed.stats.cpu()[:, 0]
+        assert int(rounds.min()) >= 1
+
+
+@pytest.mark.parametrize("S,L,B", [(33, 513, 12), (100, 2048, 30),
+                                   (64, 32768, 1440)])
+def test_padded_kernel_unstaged_without_lane_buffer(gpu, S, L, B):
+    """K5 with more than one CTA of rows (32 a CTA), rows too long to
+    stage (32·L > kStageBytes from L = 512 on) and lanes too long for the
+    lane buffer (B >= 12), on chip_smoke.k5_rows and on real one-MCU-row
+    segments of a 3840-wide frame at B = 1,440; equal to its plain
+    version (run on the host)."""
+    from chip_smoke import k5_rows
+
+    dec, tabs = _tables(gpu)
+    rng = np.random.default_rng(S)
+    rows = k5_rows(dec, S, L, B, rng)
+    if B == 1440:
+        real, dec = _long_rows(gpu, 8, L, seed=B)
+        rows[8:16] = real
+        st = dec.state
+        tabs = (st.lo, st.hi, st.offset, st.values)
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    segb[:16] = B
+    sched = np.resize(dec.comp_idx[:6], B).astype(np.int32)
+    kw = dict(blocks_per_segment=B, n_components=3)
+    args = (torch.from_numpy(rows), torch.from_numpy(segb),
+            torch.from_numpy(sched))
+    ref = huffman_decode.decode_segments_plain(
+        *args, *(t.cpu() for t in tabs), **kw)
+    got = huffman_decode.decode_segments(*(a.to(gpu) for a in args), *tabs,
+                                         **kw)
+    assert torch.equal(got.cpu(), ref)

@@ -111,6 +111,24 @@ def _round_up(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
 
+def _schedule_array(mcus_wide: int, mcus_high: int,
+                    factors: list[tuple[int, int]]) -> np.ndarray:
+    """``block_schedule`` as an (n_blocks, 3) int64 array of (component,
+    x, y) rows, in the same order: MCU rows, MCUs, components, then each
+    component's (h, v) blocks row by row. ``factors`` are the components'
+    (horizontal, vertical) sampling factors."""
+    tmpl = np.array([(ci, h, v, hs, vs)
+                     for ci, (hs, vs) in enumerate(factors)
+                     for v in range(vs) for h in range(hs)], dtype=np.int64)
+    my, mx = np.divmod(np.arange(mcus_wide * mcus_high, dtype=np.int64),
+                       mcus_wide)
+    out = np.empty((len(my), len(tmpl), 3), dtype=np.int64)
+    out[:, :, 0] = tmpl[:, 0]
+    out[:, :, 1] = (mx[:, None] * tmpl[:, 3] + tmpl[:, 1]) * 8
+    out[:, :, 2] = (my[:, None] * tmpl[:, 4] + tmpl[:, 2]) * 8
+    return out.reshape(-1, 3)
+
+
 # ---------------------------------------------------------------------------
 # decoder geometry
 # ---------------------------------------------------------------------------
@@ -205,6 +223,17 @@ class DecoderGeometry:
                             sched.append((ci, (mcu_x * hs + h) * 8,
                                           (mcu_y * vs + v) * 8))
         return sched
+
+    def block_schedule_array(self) -> np.ndarray:
+        """``block_schedule`` as an (n_blocks, 3) int64 array, built
+        without a Python loop over blocks (the sessions' form)."""
+        c0 = self.components[0]
+        return _schedule_array(
+            c0.decoded_width // (8 * c0.component.horizontal_sampling_factor),
+            c0.decoded_height // (8 * c0.component.vertical_sampling_factor),
+            [(c.component.horizontal_sampling_factor,
+              c.component.vertical_sampling_factor)
+             for c in self.components])
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +368,14 @@ class EncoderGeometry:
                                           (x_mb * s.hscale + x_sub) * 8,
                                           (y_mb * s.vscale + y_sub) * 8))
         return sched
+
+    def block_schedule_array(self) -> np.ndarray:
+        """``block_schedule`` as an (n_blocks, 3) int64 array, built
+        without a Python loop over blocks (the sessions' form)."""
+        s0 = self.scans[0]
+        return _schedule_array(s0.width // (8 * s0.hscale),
+                               s0.height // (8 * s0.vscale),
+                               [(s.hscale, s.vscale) for s in self.scans])
 
     def huffman_specs(self) -> tuple[list[Spec], list[Spec]]:
         """(DC specs, AC specs), one per scan component."""

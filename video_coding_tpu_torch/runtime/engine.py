@@ -121,6 +121,15 @@ def _segment_rows(a: torch.Tensor, B: int) -> torch.Tensor:
     return a[torch.arange(B, device=a.device) % a.shape[0]].contiguous()
 
 
+def _check_flat_bytes(total: int) -> None:
+    """The Huffman kernels take each lane's start in its dispatch's flat
+    buffer as int32: refuse a dispatch whose entropy data reach 2 GiB,
+    where the offsets would wrap (and a kernel read outside the buffer)."""
+    if total >= 1 << 31:
+        raise ValueError(f"a dispatch's entropy data must be under 2 GiB "
+                         f"(got {total} bytes): decode fewer frames a call")
+
+
 def _lane_bucket(max_len: int, floor_log2: int) -> int:
     """Power-of-two lane length with >= 4 guard bytes past the longest
     lane."""
@@ -211,9 +220,9 @@ class JpegDecoderSession:
         self.header = header
         geom = DecoderGeometry(header)
         self.components = geom.components
-        sched = geom.block_schedule()
+        sched = geom.block_schedule_array()
         self.n_blocks = len(sched)
-        self.comp_idx = np.array([s[0] for s in sched], dtype=np.int32)
+        self.comp_idx = sched[:, 0].astype(np.int32)
         qtabs = np.stack([c.quant_table for c in self.components])
         self.quant = qtabs[self.comp_idx].astype(np.int32)
         self.mcu_size = sum(c.component.horizontal_sampling_factor
@@ -230,9 +239,9 @@ class JpegDecoderSession:
         # component's blocks in raster order
         self.plane_geom = []
         for ci, comp in enumerate(self.components):
-            rows = [i for i, s in enumerate(sched) if s[0] == ci]
-            order = sorted(rows, key=lambda i: (sched[i][2], sched[i][1]))
-            self.plane_geom.append((np.array(order, dtype=np.int32),
+            rows = np.flatnonzero(sched[:, 0] == ci)
+            order = rows[np.lexsort((sched[rows, 1], sched[rows, 2]))]
+            self.plane_geom.append((order.astype(np.int32),
                                     comp.decoded_height // 8,
                                     comp.decoded_width // 8))
         self._warned_serial_entropy = False
@@ -359,6 +368,7 @@ class JpegDecoderSession:
         the flat buffer in length-sorted lane order. Returns (starts,
         lens, seg_blocks, inv_perm) with the per-lane arrays in sorted
         order."""
+        _check_flat_bytes(int(lens64.sum()))
         lens = lens64.astype(np.int32)
         starts = np.zeros(len(lens64), np.int32)
         np.cumsum(lens[:-1], out=starts[1:])
@@ -501,6 +511,7 @@ class JpegDecoderSession:
             bp0_l.append((bo - 8 * s64).astype(np.int32))
             dc0_l.append(dp[:, :C].astype(np.int32))
             base += len(fl)
+        _check_flat_bytes(base)
         lens64 = np.concatenate(lens_l)
         seg_blocks = np.full(R, stride, dtype=np.int32)
         if self.n_blocks % stride:
@@ -845,9 +856,9 @@ class JpegEncoderSession:
         self.restart_interval = restart_interval
         self._geom = EncoderGeometry(params, restart_interval)
         self.scans = self._geom.scans
-        sched = self._geom.block_schedule()
+        sched = self._geom.block_schedule_array()
         self.n_blocks = len(sched)
-        self.comp_idx = np.array([s[0] for s in sched], dtype=np.int32)
+        self.comp_idx = sched[:, 0].astype(np.int32)
         qtabs = np.stack([s.quant_table for s in self.scans])
         self.quant = qtabs[self.comp_idx].astype(np.int32)
         mcu_size = sum(s.hscale * s.vscale for s in self.scans)
@@ -860,12 +871,10 @@ class JpegEncoderSession:
         self.gather = []
         for si, s in enumerate(self.scans):
             nbx = s.width // 8
-            rows = [(i, sched[i]) for i in range(len(sched))
-                    if sched[i][0] == si]
-            take = np.array([(y // 8) * nbx + (x // 8)
-                             for _i, (_si, x, y) in rows], dtype=np.int32)
-            dest = np.array([i for i, _ in rows], dtype=np.int32)
-            self.gather.append((take, dest, s.height // 8, nbx))
+            dest = np.flatnonzero(sched[:, 0] == si)
+            take = (sched[dest, 2] // 8) * nbx + sched[dest, 1] // 8
+            self.gather.append((take.astype(np.int32),
+                                dest.astype(np.int32), s.height // 8, nbx))
         # composed stream-order permutation over the scan-major
         # concatenation of every scan's raster blocks
         perm = np.zeros(self.n_blocks, np.int32)
