@@ -1,20 +1,33 @@
 """The port's ``runtime/trace.py`` on the CPU: every ``DecodeTrace`` stage
 against the JAX package's ``pipeline_trace`` on seeded and extreme
 coefficients, ``recon`` against the port's decode datapath (K2's plain
-version), and ``profile`` writing a Chrome trace. Tolerance: exact
-equality. ``pipeline_trace`` runs on the card unless asked for the CPU,
-as the other entry points do."""
+version), ``profile`` writing a Chrome trace with the program's spans on
+its clock, and the span recorder: off it reads no clock; on, nesting,
+work handed to other threads, the cap and the decode path's span tree
+with its counts. Tolerance: exact equality (0.1 ms for the clocks).
+``pipeline_trace`` runs on the card unless asked for the CPU, as the
+other entry points do."""
 
+import collections
 import json
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
 from video_coding_tpu.runtime.trace import pipeline_trace as jax_trace
+from video_coding_tpu_torch.common.bitstream import BitReader
+from video_coding_tpu_torch.entropy import scan
+from video_coding_tpu_torch.entropy.decode_tables import (auto_strategy,
+                                                          flat_words_route)
+from video_coding_tpu_torch.model.header import Header
 from video_coding_tpu_torch.ops import datapath
-from video_coding_tpu_torch.runtime import trace
+from video_coding_tpu_torch.runtime import engine, trace
+
+from _torch_fixtures import encode, synth_frame
 
 FIELDS = ["coefs_zigzag", "dequant_zigzag", "dequant_natural",
           "after_row_pass", "after_col_pass", "clipped", "recon"]
@@ -79,3 +92,196 @@ def test_pipeline_trace_defaults_to_the_card():
         pytest.skip("checks the default without a card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trace.pipeline_trace(*_inputs("seeded", 4))
+
+
+# -- the span recorder ---------------------------------------------------------
+
+def test_off_the_recorder_reads_no_clock(monkeypatch):
+    """Off, ``span`` is the shared no-op and nothing reads the clock or
+    records; the same calls on read it (the stub is the one used)."""
+    reads = []
+
+    def clock():
+        reads.append(1)
+        return len(reads)
+
+    monkeypatch.setattr(time, "perf_counter_ns", clock)
+    assert trace.span("a", n=1) is trace.span("b")
+    with trace.span("a", n=1):
+        trace.attrs(m=2)
+    fn = trace.queued("pipeline.queue", lambda x: x + 1, dispatch=0)
+    assert fn(1) == 2 and trace.carry(len)("ab") == 2
+    assert reads == []
+    with trace.recording() as rec:
+        with trace.span("a"):
+            pass
+    assert reads and [s.name for s in rec.spans] == ["a"]
+
+
+def test_nesting_gives_parents_and_one_dispatch():
+    with trace.recording() as rec:
+        with trace.span("outer", frames=2):
+            with trace.span("inner") as inner:
+                trace.attrs(lanes=3)
+            with trace.span("sibling"):
+                pass
+        with trace.span("next"):
+            pass
+    by = {s.name: s for s in rec.spans}
+    assert inner is not None and by["inner"].attrs == {"lanes": 3}
+    assert by["outer"].parent is None and by["outer"].attrs == {"frames": 2}
+    assert by["inner"].parent == by["sibling"].parent == by["outer"].id
+    assert by["inner"].dispatch == by["outer"].dispatch
+    assert by["next"].dispatch != by["outer"].dispatch
+    assert by["outer"].start_ns <= by["inner"].start_ns \
+        <= by["inner"].end_ns <= by["sibling"].start_ns \
+        <= by["outer"].end_ns
+    assert len({s.id for s in rec.spans}) == 4 and rec.dropped == 0
+
+
+def test_work_handed_to_a_pool_keeps_parent_and_dispatch():
+    def work(i):
+        with trace.span("work", i=i):
+            return i
+
+    with trace.recording() as rec:
+        with trace.span("parent"):
+            with ThreadPoolExecutor(max_workers=3) as ex:
+                assert list(ex.map(trace.carry(work), range(6))) == \
+                    list(range(6))
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            futs = [ex.submit(trace.queued("pipeline.queue", work, dispatch=i),
+                              i) for i in range(4)]
+            assert [f.result(timeout=30) for f in futs] == list(range(4))
+    parent = [s for s in rec.spans if s.name == "parent"][0]
+    carried = [s for s in rec.spans if s.name == "work" and s.attrs["i"] < 6
+               and s.parent == parent.id]
+    assert len(carried) == 6
+    assert all(s.dispatch == parent.dispatch for s in carried)
+    assert {s.tid for s in carried} - {parent.tid}
+    waits = {s.id: s for s in rec.spans if s.name == "pipeline.queue"}
+    assert sorted(w.attrs["dispatch"] for w in waits.values()) == [0, 1, 2, 3]
+    assert len({w.dispatch for w in waits.values()} | {parent.dispatch}) == 5
+    handed = [s for s in rec.spans if s.name == "work"
+              and s.parent in waits]
+    assert len(handed) == 4
+    for s in handed:
+        w = waits[s.parent]
+        assert s.dispatch == w.dispatch and s.attrs["i"] == \
+            w.attrs["dispatch"]
+        assert w.end_ns <= s.start_ns and w.tid != s.tid
+
+
+def test_the_cap_counts_dropped_spans(monkeypatch):
+    monkeypatch.setattr(trace, "CAP", 5)
+    with trace.recording() as rec:
+        for _ in range(12):
+            with trace.span("x"):
+                pass
+    assert len(rec.spans) == 5 and rec.dropped == 7
+    trace.start()
+    with pytest.raises(RuntimeError, match="already on"):
+        trace.start()
+    assert trace.stop().spans == []
+    with pytest.raises(RuntimeError, match="not on"):
+        trace.stop()
+
+
+def _dispatch_streams(n=8):
+    streams = [encode("420", synth_frame("420", 256, 128, seed), 75, 4)
+               for seed in range(n)]
+    bits = BitReader(streams[0])
+    header = Header.decode(bits)
+    return header, [s[bits.bit_pos >> 3:] for s in streams]
+
+
+def test_decode_iter_records_each_dispatch_tree():
+    """256x128 4:2:0, a restart every 4 MCUs, 4 frames a dispatch: each
+    dispatch is pipeline.queue -> decode.dispatch -> {decode.destuff_pool
+    -> 4 decode.destuff, decode.lane_prep, uploads, two decode.launch}
+    with the counts of what ran; the planes are those of an unrecorded
+    run."""
+    header, payloads = _dispatch_streams()
+    sess = engine.JpegDecoderSession(header, device="cpu")
+    with trace.recording() as rec:
+        got = list(sess.decode_device_batch_iter(iter(payloads), batch=4,
+                                                 depth=2))
+    want = list(sess.decode_device_batch_iter(iter(payloads), batch=4))
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
+    kids = collections.defaultdict(list)
+    for s in rec.spans:
+        kids[s.parent].append(s)
+    roots = sorted(kids[None], key=lambda s: s.attrs["dispatch"])
+    assert [r.name for r in roots] == ["pipeline.queue"] * 2
+    assert [r.attrs for r in roots] == [{"dispatch": 0}, {"dispatch": 1}]
+    B = sess.blocks_per_segment
+    for k, root in enumerate(roots):
+        frames = payloads[4 * k:4 * k + 4]
+        (disp,) = kids[root.id]
+        assert disp.name == "decode.dispatch" and disp.tid != root.tid
+        assert disp.attrs == {"frames": 4,
+                              "bytes_in": sum(map(len, frames))}
+        names = collections.Counter(s.name for s in kids[disp.id])
+        assert names["decode.destuff_pool"] == 1
+        assert names["decode.lane_prep"] == 1
+        assert names["decode.launch"] == 2 and names["upload"] >= 4
+        assert set(names) == {"decode.destuff_pool", "decode.lane_prep",
+                              "upload", "decode.launch"}
+        by = {s.name: s for s in kids[disp.id]}
+        destuffs = kids[by["decode.destuff_pool"].id]
+        assert [s.name for s in destuffs] == ["decode.destuff"] * 4
+        lens = [scan.destuff_flat(f)[1] for f in frames]
+        assert sorted((s.attrs["bytes_in"], s.attrs["segments"])
+                      for s in destuffs) == sorted(
+            (len(f), len(n)) for f, n in zip(frames, lens))
+        prep = by["decode.lane_prep"]
+        S = sum(len(n) for n in lens)
+        L = prep.attrs["lane_len"]
+        assert prep.attrs["lanes"] == S
+        assert prep.attrs["lane_bytes"] == sum(int(n.sum()) for n in lens)
+        assert L == engine._lane_bucket(max(int(n.max()) for n in lens), 6)
+        launches = sorted((s for s in kids[disp.id]
+                           if s.name == "decode.launch"),
+                          key=lambda s: s.start_ns)
+        route = ("flat" if flat_words_route(S, L, B, "auto")
+                 else auto_strategy(S, L, B))
+        assert [s.attrs for s in launches] == [
+            {"stage": "huffman", "route": route}, {"stage": "tail"}]
+        for s in rec.spans:
+            if s.dispatch == disp.dispatch:
+                assert s.start_ns <= s.end_ns
+        assert all(s.dispatch == root.dispatch for s in kids[disp.id])
+        assert all(s.attrs["bytes"] > 0 for s in kids[disp.id]
+                   if s.name == "upload")
+
+
+def test_profile_writes_the_program_spans_on_its_clock(tmp_path):
+    """The worker threads' spans land in the profiler's Chrome trace on
+    their own threads, and a main-thread span around a torch op encloses
+    the op's ``aten::`` event to within 0.1 ms on the trace's clock."""
+    def work(i):
+        with trace.span("test.worker", i=i):
+            return torch.ones(8).sum()
+
+    a = torch.ones(256, 256)
+    with trace.profile(str(tmp_path)):
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            list(ex.map(trace.carry(work), range(4)))
+        with trace.span("test.main"):
+            torch.mm(a, a)
+    (name,) = os.listdir(tmp_path)
+    events = json.loads((tmp_path / name).read_text())["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "vct.span"]
+    workers = [e for e in spans if e["name"] == "test.worker"]
+    (main,) = [e for e in spans if e["name"] == "test.main"]
+    assert len(workers) == 4 and all(e["tid"] != main["tid"]
+                                     for e in workers)
+    assert sorted(e["args"]["i"] for e in workers) == [0, 1, 2, 3]
+    (mm,) = [e for e in events if e.get("name") == "aten::mm"]
+    assert main["ts"] <= mm["ts"] + 100
+    assert main["ts"] + main["dur"] >= mm["ts"] + mm["dur"] - 100
+    assert abs(main["ts"] - mm["ts"]) < 1000
+    with trace.recording():                      # profile turned it off
+        pass

@@ -31,6 +31,7 @@ from ..model.decoder import (SegmentDecodeError, decode_scan_blocks,
                              plan_segment_alignment)
 from ..model.encoder import magnitude_bits, size_category
 from ..model.header import DecodeError
+from ..runtime import trace
 from . import native
 from .tables import DecoderTables, EncoderTables
 
@@ -75,7 +76,17 @@ def destuff_flat(data: bytes, use_native: bool | None = None
     drops both and ends the segment; another 0xFF drops this one (fill);
     anything else terminates the scan at this 0xFF. The classes never
     overlap — the byte a stuffing or RSTn pair consumes is never 0xFF — so
-    each 0xFF is classified on its own, without a sequential walk."""
+    each 0xFF is classified on its own, without a sequential walk. While
+    the span recorder is on, the call is a ``decode.destuff`` span
+    (``bytes_in``, ``segments``)."""
+    with trace.span("decode.destuff", bytes_in=len(data)):
+        flat, lens = _destuff_flat(data, use_native)
+        trace.attrs(segments=len(lens))
+        return flat, lens
+
+
+def _destuff_flat(data: bytes, use_native: bool | None):
+    """``destuff_flat``'s two tiers."""
     lib = _engine(use_native)
     if lib is not None:
         out, ends, _marks = _destuff_native(lib, data, 8)
@@ -600,15 +611,18 @@ def _destuff_parts(entropy_list: list, n_seg: int):
     engine (ctypes drops the GIL for each call, so the passes run in
     parallel) and validate each frame's restart segment count. Returns
     (parts, lens_parts) — per-frame flat buffers and per-segment byte
-    lengths."""
-    if len(entropy_list) > 1:
-        from concurrent.futures import ThreadPoolExecutor
+    lengths. The pool's wall time is a ``decode.destuff_pool`` span, the
+    parent of each frame's ``decode.destuff`` on its thread."""
+    with trace.span("decode.destuff_pool", frames=len(entropy_list)):
+        if len(entropy_list) > 1:
+            from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(
-                max_workers=min(8, len(entropy_list))) as ex:
-            destuffed = list(ex.map(destuff_flat, entropy_list))
-    else:
-        destuffed = [destuff_flat(entropy_list[0])]
+            with ThreadPoolExecutor(
+                    max_workers=min(8, len(entropy_list))) as ex:
+                destuffed = list(ex.map(trace.carry(destuff_flat),
+                                        entropy_list))
+        else:
+            destuffed = [destuff_flat(entropy_list[0])]
     parts, lens_parts = [], []
     for flat, lens64 in destuffed:
         if len(lens64) != n_seg:
@@ -621,23 +635,32 @@ def _destuff_parts(entropy_list: list, n_seg: int):
 def _pipelined_map(fn, items, depth: int):
     """Ordered generator over ``fn(item)`` with up to ``depth`` items in
     flight on worker threads, so the host prep of item i+1 overlaps the
-    device work and downloads of item i."""
+    device work and downloads of item i. Each item's wait for a worker,
+    from its submission to its start, is a ``pipeline.queue`` span
+    (``dispatch``: its place in ``items``) that opens a dispatch: the
+    spans ``fn`` opens on the worker are its children."""
     import concurrent.futures
     from collections import deque
 
-    it = iter(items)
+    it = enumerate(items)
     sentinel = object()
     with concurrent.futures.ThreadPoolExecutor(
             max_workers=max(1, depth)) as pool:
+
+        def submit(x):
+            i, item = x
+            return pool.submit(
+                trace.queued("pipeline.queue", fn, dispatch=i), item)
+
         q = deque()
         for _ in range(max(1, depth)):
             x = next(it, sentinel)
             if x is sentinel:
                 break
-            q.append(pool.submit(fn, x))
+            q.append(submit(x))
         while q:
             fut = q.popleft()
             x = next(it, sentinel)
             if x is not sentinel:
-                q.append(pool.submit(fn, x))
+                q.append(submit(x))
             yield fut.result()

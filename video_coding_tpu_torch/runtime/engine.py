@@ -46,8 +46,8 @@ from ..common.plane import Plane
 from ..device import resolve_device
 from ..entropy.assemble import assemble_frames
 from ..entropy import gather_pack, huffman_decode, pack_stuff
-from ..entropy.decode_tables import (expand_luts, flat_words_route,
-                                     range_tables)
+from ..entropy.decode_tables import (auto_strategy, expand_luts,
+                                     flat_words_route, range_tables)
 from ..entropy.huffman_encode import (device_encoder_tables, encode_segments,
                                       m_out_for)
 from ..entropy import scan as entropy_scan
@@ -62,6 +62,7 @@ from ..model.header import (DecodeError, DecoderGeometry, EncoderGeometry,
 from ..ops import color, datapath, sparse
 from ..parallel.mesh import flat_group, mesh_device, mesh_index, shard_rows
 from ..state import DecoderState, EncoderState
+from . import trace
 
 _EOI = bytes((0xFF, marker_codes.EOI))
 # the encoder preset of each chroma subsampling
@@ -94,7 +95,10 @@ def _mesh_depth(mesh, depth: int) -> int:
 
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """A host array on ``device``: an ``upload`` span (``bytes``)."""
+    a = np.ascontiguousarray(a)
+    with trace.span("upload", bytes=a.nbytes):
+        return torch.from_numpy(a).to(device)
 
 
 def _plane_from_blocks(blocks: torch.Tensor, nby: int,
@@ -410,6 +414,16 @@ class JpegDecoderSession:
             return huffman_decode.decode_flat_staged(*args, **kw)
         return huffman_decode.decode_flat(*args, **kw)
 
+    def _padded_route(self, S: int, L: int) -> str:
+        """The strategy ``decode_padded`` takes for S lanes of L bytes."""
+        how = self.device_huffman
+        return auto_strategy(S, L, self.blocks_per_segment) \
+            if how == "auto" else how
+
+    def _flat_route(self) -> str:
+        """The kernel ``_decode_flat_lanes`` takes: K7 or K1."""
+        return "staged" if self.decode_gather == "dma" else "flat"
+
     @staticmethod
     def _gather_lanes(flat, starts, lens, L: int) -> torch.Tensor:
         """(S, L) zero-padded lane matrix from the flat buffer, on the
@@ -433,38 +447,51 @@ class JpegDecoderSession:
         F = len(parts)
         dev = self.device
         B = self.blocks_per_segment
-        lens64 = np.concatenate(lens_parts)
-        seg_blocks = np.tile(self._expected_seg_blocks(self.n_segments), F)
-        if run is None and self._use_padded_lanes(batched=F > 1):
-            lanebuf, _lens, segb, inv_perm, _L = self._padded_lane_inputs(
-                np.concatenate(parts), lens64, seg_blocks)
-            coefs = self._decode_segments(_upload(lanebuf, dev),
-                                          _upload(segb, dev))
+        with trace.span("decode.lane_prep"):
+            lens64 = np.concatenate(lens_parts)
+            seg_blocks = np.tile(self._expected_seg_blocks(self.n_segments),
+                                 F)
+            padded = run is None and self._use_padded_lanes(batched=F > 1)
+            if padded:
+                lanebuf, lens, segb, inv_perm, L = self._padded_lane_inputs(
+                    np.concatenate(parts), lens64, seg_blocks)
+            else:
+                n, r = run or (1, 0)
+                S = len(lens64)
+                pad = -S % n
+                starts, lens, segb, inv_perm = self._flat_lane_inputs(
+                    np.pad(lens64, (0, pad)), np.pad(seg_blocks, (0, pad)))
+                if n > 1:
+                    step = len(lens) // n
+                    starts, lens, segb = (a[r * step:(r + 1) * step]
+                                          for a in (starts, lens, segb))
+                    # this run's segments' bytes only, in stream order
+                    by = np.argsort(starts, kind="stable")
+                    packed = np.empty_like(starts)
+                    packed[by] = np.cumsum(lens[by]) - lens[by]
+                    idx = (np.repeat(starts[by] - packed[by], lens[by])
+                           + np.arange(int(lens.sum())))
+                    parts, starts = [np.concatenate(parts)[idx]], packed
+                L = _lane_bucket(int(lens.max()), 6)
+                flat = self._join_flat(parts)
+            trace.attrs(lanes=len(lens), lane_len=L,
+                        lane_bytes=int(lens.sum(dtype=np.int64)))
+        if padded:
+            lanebuf, segb = _upload(lanebuf, dev), _upload(segb, dev)
+            with trace.span("decode.launch", stage="huffman",
+                            route=self._padded_route(len(lens), L)):
+                coefs = self._decode_segments(lanebuf, segb)
             return coefs, _upload(inv_perm, dev).to(torch.int64)
-        n, r = run or (1, 0)
-        S = len(lens64)
-        pad = -S % n
-        starts, lens, segb, inv_perm = self._flat_lane_inputs(
-            np.pad(lens64, (0, pad)), np.pad(seg_blocks, (0, pad)))
-        if n > 1:
-            step = len(lens) // n
-            starts, lens, segb = (a[r * step:(r + 1) * step]
-                                  for a in (starts, lens, segb))
-            # this run's segments' bytes only, in stream order
-            by = np.argsort(starts, kind="stable")
-            packed = np.empty_like(starts)
-            packed[by] = np.cumsum(lens[by]) - lens[by]
-            idx = (np.repeat(starts[by] - packed[by], lens[by])
-                   + np.arange(int(lens.sum())))
-            parts, starts = [np.concatenate(parts)[idx]], packed
-        L = _lane_bucket(int(lens.max()), 6)
         flat, starts, lens, segb = (_upload(a, dev) for a in (
-            self._join_flat(parts), starts, lens, segb))
-        if flat_words_route(len(lens), L, B, self.device_huffman):
-            coefs = self._decode_flat_lanes(flat, starts, lens, segb, B)
-        else:
-            coefs = self._decode_segments(
-                self._gather_lanes(flat, starts, lens, L), segb)
+            flat, starts, lens, segb))
+        with trace.span("decode.launch", stage="huffman"):
+            if flat_words_route(len(lens), L, B, self.device_huffman):
+                trace.attrs(route=self._flat_route())
+                coefs = self._decode_flat_lanes(flat, starts, lens, segb, B)
+            else:
+                trace.attrs(route=self._padded_route(len(lens), L))
+                coefs = self._decode_segments(
+                    self._gather_lanes(flat, starts, lens, L), segb)
         return coefs, _upload(inv_perm[:S], dev).to(torch.int64)
 
     def _decode_device_batch_indexed(self, flats: list):
@@ -480,52 +507,59 @@ class JpegDecoderSession:
         stride = self._index_stride()
 
         def scan(fl):
-            try:
-                return index_scan(fl, self.comp_idx, stride, self.tables)
-            except ValueError:
-                return None
+            with trace.span("decode.index_scan", bytes_in=len(fl)):
+                try:
+                    return index_scan(fl, self.comp_idx, stride, self.tables)
+                except ValueError:
+                    return None
 
         if len(flats) > 1:
             from concurrent.futures import ThreadPoolExecutor
 
             with ThreadPoolExecutor(max_workers=min(8, len(flats))) as ex:
-                idxs = list(ex.map(scan, flats))
+                idxs = list(ex.map(trace.carry(scan), flats))
         else:
             idxs = [scan(flats[0])]
         if any(i is None for i in idxs):
             return None
-        F = len(flats)
-        C = len(self.components)
-        R = (self.n_blocks + stride - 1) // stride
-        starts_l, lens_l, bp0_l, dc0_l = [], [], [], []
-        base = 0
-        for fl, (bo, dp) in zip(flats, idxs):
-            s64 = bo >> 3
-            ends = np.empty(R, np.int64)
-            # a lane's last byte may hold the next lane's first bits: its
-            # block count ends it, not its length
-            ends[:-1] = (bo[1:] + 7) >> 3
-            ends[-1] = len(fl)
-            starts_l.append(s64 + base)
-            lens_l.append(ends - s64)
-            bp0_l.append((bo - 8 * s64).astype(np.int32))
-            dc0_l.append(dp[:, :C].astype(np.int32))
-            base += len(fl)
-        _check_flat_bytes(base)
-        lens64 = np.concatenate(lens_l)
-        seg_blocks = np.full(R, stride, dtype=np.int32)
-        if self.n_blocks % stride:
-            seg_blocks[-1] = self.n_blocks % stride
-        order, inv_perm = self._lane_order(lens64)
+        with trace.span("decode.lane_prep"):
+            F = len(flats)
+            C = len(self.components)
+            R = (self.n_blocks + stride - 1) // stride
+            starts_l, lens_l, bp0_l, dc0_l = [], [], [], []
+            base = 0
+            for fl, (bo, dp) in zip(flats, idxs):
+                s64 = bo >> 3
+                ends = np.empty(R, np.int64)
+                # a lane's last byte may hold the next lane's first bits:
+                # its block count ends it, not its length
+                ends[:-1] = (bo[1:] + 7) >> 3
+                ends[-1] = len(fl)
+                starts_l.append(s64 + base)
+                lens_l.append(ends - s64)
+                bp0_l.append((bo - 8 * s64).astype(np.int32))
+                dc0_l.append(dp[:, :C].astype(np.int32))
+                base += len(fl)
+            _check_flat_bytes(base)
+            lens64 = np.concatenate(lens_l)
+            seg_blocks = np.full(R, stride, dtype=np.int32)
+            if self.n_blocks % stride:
+                seg_blocks[-1] = self.n_blocks % stride
+            order, inv_perm = self._lane_order(lens64)
+            lanes = [np.concatenate(starts_l).astype(np.int32),
+                     lens64.astype(np.int32), np.tile(seg_blocks, F),
+                     np.concatenate(bp0_l), np.concatenate(dc0_l)]
+            lanes = [a[order] for a in lanes]
+            flat = self._join_flat(flats)
+            # K1 reads the lanes from the flat buffer: no lane matrix
+            trace.attrs(lanes=len(lens64), lane_bytes=int(lens64.sum()))
         dev = self.device
-        lanes = [np.concatenate(starts_l).astype(np.int32),
-                 lens64.astype(np.int32), np.tile(seg_blocks, F),
-                 np.concatenate(bp0_l), np.concatenate(dc0_l)]
-        starts, lens, segb, bp0, dc0 = (_upload(a[order], dev)
-                                        for a in lanes)
-        coefs = self._decode_flat_lanes(
-            _upload(self._join_flat(flats), dev), starts, lens, segb, stride,
-            bp0, dc0)
+        starts, lens, segb, bp0, dc0 = (_upload(a, dev) for a in lanes)
+        flat = _upload(flat, dev)
+        with trace.span("decode.launch", stage="huffman",
+                        route=self._flat_route()):
+            coefs = self._decode_flat_lanes(flat, starts, lens, segb, stride,
+                                            bp0, dc0)
         return self._decode_tail_pool(
             coefs.view(-1, 64), _upload(inv_perm, dev).to(torch.int64), F,
             stride)
@@ -539,9 +573,11 @@ class JpegDecoderSession:
         j % seg_div); the inverse lane permutation folds into the plane
         gather, so stream-ordered coefficients are never materialized."""
         seg_div = seg_div or self.blocks_per_segment
-        pixels = datapath.decode_datapath(coefs_pool,
-                                          self._seg_view(seg_div)[1])
-        return self._assemble_planes(pixels, inv_perm.view(f, -1), seg_div)
+        with trace.span("decode.launch", stage="tail"):
+            pixels = datapath.decode_datapath(coefs_pool,
+                                              self._seg_view(seg_div)[1])
+            return self._assemble_planes(pixels, inv_perm.view(f, -1),
+                                         seg_div)
 
     def _assemble_planes(self, pixels: torch.Tensor, ip: torch.Tensor,
                          seg_div: int):
@@ -564,17 +600,22 @@ class JpegDecoderSession:
         return self._stacked(entropy_list, frame_sharded=True)
 
     def _stacked(self, entropy_list: list[bytes], frame_sharded: bool):
+        """The batch decode of every route: a ``decode.dispatch`` span
+        (``frames``, ``bytes_in``)."""
         self._check_device_entropy_route()
-        if self.mesh is not None:
-            return self._decode_mesh(entropy_list, frame_sharded)
-        parts, lens_parts = _destuff_parts(entropy_list, self.n_segments)
-        if self._indexable():
-            out = self._decode_device_batch_indexed(parts)
-            if out is not None:
-                return out
-        coefs, inv_perm = self._decode_coefs_pool(parts, lens_parts)
-        return self._decode_tail_pool(coefs.view(-1, 64), inv_perm,
-                                      len(entropy_list))
+        with trace.span("decode.dispatch", frames=len(entropy_list),
+                        bytes_in=sum(map(len, entropy_list))):
+            if self.mesh is not None:
+                return self._decode_mesh(entropy_list, frame_sharded)
+            parts, lens_parts = _destuff_parts(entropy_list,
+                                               self.n_segments)
+            if self._indexable():
+                out = self._decode_device_batch_indexed(parts)
+                if out is not None:
+                    return out
+            coefs, inv_perm = self._decode_coefs_pool(parts, lens_parts)
+            return self._decode_tail_pool(coefs.view(-1, 64), inv_perm,
+                                          len(entropy_list))
 
     decode_batch_stacked = decode_device_batch_stacked
 
@@ -588,15 +629,19 @@ class JpegDecoderSession:
         n, r, F = mesh.size(), mesh_index(mesh), len(entropy_list)
         coefs, ip = self._decode_coefs_pool(
             *_destuff_parts(entropy_list, self.n_segments), run=(n, r))
-        pixels = datapath.decode_datapath(coefs.view(-1, 64), self._quant_seg)
-        every = pixels.new_empty((n * pixels.shape[0], 8, 8))
-        dist.all_gather_into_tensor(every, pixels, group=flat_group(mesh))
-        ip = ip.view(F, -1)
-        if frame_sharded and F % n == 0:
-            k = F // n
-            return tuple(shard_rows(p, mesh) for p in self._assemble_planes(
-                every, ip[r * k:(r + 1) * k], B))
-        return self._assemble_planes(every, ip, B)
+        with trace.span("decode.launch", stage="tail"):
+            pixels = datapath.decode_datapath(coefs.view(-1, 64),
+                                              self._quant_seg)
+            every = pixels.new_empty((n * pixels.shape[0], 8, 8))
+            dist.all_gather_into_tensor(every, pixels,
+                                        group=flat_group(mesh))
+            ip = ip.view(F, -1)
+            if frame_sharded and F % n == 0:
+                k = F // n
+                return tuple(shard_rows(p, mesh)
+                             for p in self._assemble_planes(
+                                 every, ip[r * k:(r + 1) * k], B))
+            return self._assemble_planes(every, ip, B)
 
     def decode_device_batch(self, entropy_list: list[bytes]):
         """Like decode_device_batch_stacked, as a list of per-frame plane
