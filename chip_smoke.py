@@ -43,9 +43,10 @@
        through every route;
 - frames past 1080p:
     M  3840x2160, 3996x2160 and 7680x4800 (4:2:0 and 4:4:4) through the
-       transcode, decode, RGB and encode entry points, one-MCU-row lanes
-       in each branch of the long-lane kernels (K6 staged, K6 reading
-       global memory, K5 with many CTAs, unstaged, no lane buffer).
+       transcode, decode, RGB and encode entry points, long lanes in
+       each branch of the long-lane kernels (K6 staged, K6 reading global
+       memory, K5 with many CTAs, unstaged, no lane buffer, K5 a CTA a
+       row, staged).
 
     python3 chip_smoke.py
 
@@ -244,21 +245,25 @@ Phases (any failure ends the run with a nonzero exit):
                  of 3996x2160 (a partial MCU column) and 2 of 7680x4800
                  4:2:0 and 4:4:4 from the phase 3 generator, made by a
                  worker process during phases 2-18; sources encoded at
-                 q90 with ri=1, 0 and one MCU row (4K also q95), each
-                 decoded back (PSNR);
+                 q90 with ri=1, 0 and one MCU row (4K also q95, two MCU
+                 rows and 15 MCUs), each decoded back (PSNR);
                  each call with the counts reset before and read after
                  (its kernels must launch, no plain loop may) and every
                  frame held against the host-entropy route: at 4K
                  transcode_batch_iter to q75 ri=1 (K1-K4),
                  decode_device_batch at ri=1 (K1), ri=0 (K1 with hooks)
-                 and one MCU row (q90: K6 with its rows staged; q95: K5,
-                 many CTAs, unstaged, no lane buffer), decode_gather="dma"
+                 and one MCU row (q90: K6 with its rows staged; q95: K5
+                 a CTA a row, staged), two MCU rows (the benchmark cell's
+                 272 lanes of 2,880 blocks: K5 a CTA a row, staged) and
+                 15 MCUs with device_huffman="pallas" (K5, many CTAs,
+                 unstaged, no lane buffer), decode_gather="dma"
                  (K7), decode_device_e2e with device_huffman="pallas" (K5),
                  decode_device_rgb_batch, decode_scan_tpu of frame 0's
                  one-row segments (K6 reading global memory: L is not a
                  power of two there), encode_device_batch q75 ri=8 (K3,
                  K9, K8); at 3996x2160 the transcode, ri=1, ri=0 and RGB;
-                 at 7680x4800 the transcode, ri=0, one MCU row (K5),
+                 at 7680x4800 the transcode, ri=0, one MCU row (K5 a
+                 CTA a row),
                  decode_scan_tpu (K6 from global memory) and ri=8 (K9 +
                  K8 at 4:2:0, K4 at 4:4:4's B = 24). Each long lane's L,
                  branch (M_BANDS: each must be reached) and kernel are
@@ -2663,9 +2668,10 @@ M_SIZES = {"4k": (3840, 2160, 4), "dc4k1": (3996, 2160, 4),
 # drawn with a seed
 M_LANE_PLAIN = ("K1", "K4", "K5", "K6", "K7", "K8")
 M_EDGE, M_SAMPLE = 64, 256
-# the three branches of the long-lane kernels path M must reach
+# the branches of the long-lane kernels path M must reach
 M_BANDS = ("K6 staged", "K6 from global memory",
-           "K5 many CTAs, unstaged, no lane buffer")
+           "K5 many CTAs, unstaged, no lane buffer",
+           "K5 a CTA a row, staged")
 
 
 def m_frames(out_dir: str, sizes: dict) -> dict:
@@ -2710,9 +2716,10 @@ def golden_planes(stream: bytes) -> list:
 
 def branch_constants() -> dict:
     """K5's and K6's compile-time branch constants, read from their
-    sources: K6 stages rows of up to kRowStage bytes in shared memory; K5
-    stages a CTA's kWarps * kLanesPerWarp rows up to kStageBytes and keeps
-    its blocks in shared memory up to kLaneBufBytes."""
+    sources: K6 stages rows of up to kRowStage bytes in shared memory; K5's
+    "lane" regime stages a CTA's kWarps * kLanesPerWarp rows up to
+    kStageBytes and keeps its blocks in shared memory up to kLaneBufBytes.
+    (Whether K5's "row" regime staged a row its stats say.)"""
     import re
 
     from video_coding_tpu_torch import kernels
@@ -2730,16 +2737,29 @@ def branch_constants() -> dict:
     return c
 
 
-def lane_band(name: str, S: int, L: int, B: int, consts: dict) -> str:
+def lane_band(name: str, S: int, L: int, B: int, consts: dict,
+              row_stats=None) -> str:
     """The branch of K6 or K5 that an (S, L) matrix of B-block lanes
-    takes (csrc/huffman_decode_streamed.cu, huffman_decode_padded.cu)."""
+    takes (csrc/huffman_decode_streamed.cu, huffman_decode_padded.cu).
+    ``row_stats`` is what a K5 call left in decode_segments.stats: None
+    after a "lane" launch, else the "row" launch's (S, K5_ROW_STATS), whose
+    "staged" column says whether the kernel read its rows from shared
+    memory."""
     from video_coding_tpu_torch.entropy.decode_tables import max_win_bs
+    from video_coding_tpu_torch.entropy.huffman_decode import K5_ROW_STATS
 
     if name == "K6":
         if L <= consts["kRowStage"]:
             return M_BANDS[0]
         return M_BANDS[1] + ("" if max_win_bs(L) else
                              ", past the max_win_bs limit")
+    if row_stats is not None:
+        staged = set(row_stats[:, K5_ROW_STATS.index("staged")].tolist())
+        if staged == {1}:
+            return M_BANDS[3]
+        if staged == {0}:
+            return "K5 a CTA a row, from global memory"
+        raise RuntimeError(f"K5's rows of one launch staged {staged}")
     lanes = consts["kLanes"]
     staged = 4 * ((lanes * L + 6) // 4 + 2) <= consts["kStageBytes"]
     lane_buf = lanes * (2 * (B * 64 + 2) + 4 * B) <= consts["kLaneBufBytes"]
@@ -2810,7 +2830,7 @@ def large_frame_path(counted, smi, rates_1080: dict, m_made) -> dict:
     """Phase 19 (path M): frames past 1080p — stdsizes' 4k (3840x2160),
     dc4k1 (3996x2160, a partial MCU column) and whuxga (7680x4800, 4:2:0
     and 4:4:4) — through the entry points, at one MCU row a segment
-    across the three branches of the long-lane kernels (M_BANDS). Each
+    across the branches of the long-lane kernels (M_BANDS). Each
     call runs with the launch counts reset before and read after (its
     kernels must launch, no plain loop may) and every frame is held
     against the host-entropy route (decode_batch / decode_entropy with
@@ -2852,8 +2872,10 @@ def large_frame_path(counted, smi, rates_1080: dict, m_made) -> dict:
         its K5 or K6 launch must take, ``rate`` a call that times the
         entry point (default: the call itself, median of 3)."""
         t_all = time.perf_counter()
+        rows0 = k1.decode_segments.row_launches
         (out, spies), seen = counted_without_plain_loops(
             counted, lambda: spied(sites, call), must)
+        row_calls = k1.decode_segments.row_launches - rows0
         if not same(view(out), ref):
             raise RuntimeError(f"path M {tag}: differs from the "
                                "host-entropy route")
@@ -2885,7 +2907,14 @@ def large_frame_path(counted, smi, rates_1080: dict, m_made) -> dict:
             if name in ("K5", "K6"):
                 S, L = a[0].shape
                 B = k["blocks_per_segment"]
-                got = lane_band(name, S, L, B, consts)
+                row_stats = spy.fn.stats.cpu() if name == "K5" and \
+                    spy.fn.stats is not None else None
+                got = lane_band(name, S, L, B, consts, row_stats)
+                if name == "K5" and row_calls != (
+                        seen["K5"] if row_stats is not None else 0):
+                    raise RuntimeError(
+                        f"path M {tag}: {row_calls} 'row' launch(es) of "
+                        f"{seen['K5']} K5 launch(es) in band '{got}'")
                 last = int((a[0] != 0).to(torch.int8).flip(1).argmax(1)
                            .min())
                 notes.append(f"{name} on ({S}, {L}) lanes of {B} blocks, "
@@ -3054,12 +3083,23 @@ def large_frame_path(counted, smi, rates_1080: dict, m_made) -> dict:
         decode("4k ri=0 decode_device_batch", "4k", s0, "K1+hooks", n)
         row = w // 16
         for q, kernel, band in ((90, "K6", M_BANDS[0]),
-                                (95, "K5", M_BANDS[2])):
+                                (95, "K5", M_BANDS[3])):
             sr = source("4k", c420, q, row, fr, device_route=False)
             decode(f"4k q{q} ri={row} decode_device_batch", "4k", sr,
                    kernel, n, band=band)
             if q == 95:
                 scan_tpu(f"4k q95 ri={row}", "4k", sr, M_BANDS[1])
+        # the benchmark cell's shape: two MCU rows a segment, 272 lanes of
+        # 2,880 blocks at L = 32,768 (K5 a CTA a row); and lanes of 15
+        # MCUs (~1 KB, 8,640 a dispatch) that K5 takes a thread a row
+        sr = source("4k", c420, 90, 2 * row, fr, device_route=False)
+        decode(f"4k q90 ri={2 * row} decode_device_batch", "4k", sr, "K5",
+               n, band=M_BANDS[3])
+        sr = source("4k", c420, 90, row // 16, fr, device_route=False)
+        decode(f"4k q90 ri={row // 16} decode_device_batch pallas", "4k",
+               sr, "K5", n,
+               dec=JpegDecoderSession(sr.hdr, device_huffman="pallas"),
+               band=M_BANDS[2])
         encode("4k", "4k", c420, fr, n)
         del s1, s0, sr, pal, fr
 
@@ -3096,7 +3136,7 @@ def large_frame_path(counted, smi, rates_1080: dict, m_made) -> dict:
                 golden.append(("whuxga", pool.submit(golden_planes,
                                                      sr.stream), sr.ref[0]))
             decode(f"{tag} ri={row} decode_device_batch", "whuxga", sr,
-                   "K5", n, band=M_BANDS[2])
+                   "K5", n, band=M_BANDS[3])
             scan_tpu(f"{tag} ri={row}", "whuxga", sr, M_BANDS[1])
             del sr
             encode(tag, "whuxga", make, fr, n)
@@ -3614,11 +3654,18 @@ def run_phases(m_made) -> int:
         e.synchronize()
         return host, s.elapsed_time(e) / n
 
+    rows0 = k1.decode_segments.row_launches
     k5_calls()
     k5_host, k5_pipe = k5_host_ms()
     log(f"K5 on path C, 50 calls back to back: the wrapper's host path "
         f"{k5_host:.4f} ms a call, the card {k5_pipe:.4f} ms a call")
-    log(f"K5 on path C: {S5} lanes of {a5[0].shape[1]} bytes, longest lane "
+    regime5 = k1.k5_regime(S5, a5[0].shape[1], kw5["blocks_per_segment"])
+    if regime5 != "lane" or k1.decode_segments.stats is not None or \
+            k1.decode_segments.row_launches != rows0:
+        raise RuntimeError(f"K5 took its '{regime5}' regime at path C's "
+                           "shape, not 'lane'")
+    log(f"K5 on path C ('lane' regime): {S5} lanes of {a5[0].shape[1]} "
+        f"bytes, longest lane "
         f"{int(lane_sym.max())} symbols (mean "
         f"{float(lane_sym.double().mean()):.1f}); under the profiler (5 "
         f"calls) the kernel alone "

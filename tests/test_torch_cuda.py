@@ -1112,17 +1112,19 @@ def test_foreign_streams_on_card(gpu, name, wrapper):
         .transcode_batch([payload] * 2)
 
 
-def _long_rows(gpu, S, L, seed):
-    """(S, L) rows of one-MCU-row segments of a 3840-wide 4:2:0 q90 frame
-    (1,440 blocks, ~13.5 KB each, encoded on the card): every other row
-    with random bytes after its segment up to L (read by K6's guessed
-    subsequences, never by the true decode), the rest zero-padded; and
-    the segments' decode session."""
+def _long_rows(gpu, S, L, seed, mcu_rows=1):
+    """(S, L) rows of segments of ``mcu_rows`` MCU rows of a 3840-wide
+    4:2:0 q90 frame (1,440 blocks and ~13.5 KB a row, encoded on the
+    card): every other row with random bytes after its segment up to L
+    (read by the guessed subsequences of K6 and of K5's "row" regime, never
+    by the true decode), the rest zero-padded; and the segments' decode
+    session."""
     from chip_smoke import synth_frames
 
-    enc = JpegEncoderSession(Parameters.c420(3840, 16 * S, 90), 240,
+    h = 16 * mcu_rows * S
+    enc = JpegEncoderSession(Parameters.c420(3840, h, 90), 240 * mcu_rows,
                              device=gpu)
-    stream = enc.encode_device_batch(synth_frames(1, seed, 3840, 16 * S))[0]
+    stream = enc.encode_device_batch(synth_frames(1, seed, 3840, h))[0]
     bits = BitReader(stream)
     dec = JpegDecoderSession(Header.decode(bits), device=gpu)
     parts, lens = _destuff_parts([stream[bits.bit_pos >> 3:]], S)
@@ -1178,9 +1180,12 @@ def test_streamed_kernel_on_long_rows(gpu, L):
 def test_padded_kernel_unstaged_without_lane_buffer(gpu, S, L, B):
     """K5 with more than one CTA of rows (32 a CTA), rows too long to
     stage (32·L > kStageBytes from L = 512 on) and lanes too long for the
-    lane buffer (B >= 12), on chip_smoke.k5_rows and on real one-MCU-row
-    segments of a 3840-wide frame at B = 1,440; equal to its plain
-    version (run on the host)."""
+    lane buffer (B >= 12), on chip_smoke.k5_rows, in the "lane" regime
+    (L < K5_ROW_MIN_BYTES); and on real one-MCU-row segments of a
+    3840-wide frame at B = 1,440 and L = 32,768, which k5_regime sends to
+    the "row" regime (test_padded_lane_regime_on_long_rows holds the
+    "lane" regime on such rows); equal to its plain version (run on the
+    host)."""
     from chip_smoke import k5_rows
 
     dec, tabs = _tables(gpu)
@@ -1202,3 +1207,214 @@ def test_padded_kernel_unstaged_without_lane_buffer(gpu, S, L, B):
     got = huffman_decode.decode_segments(*(a.to(gpu) for a in args), *tabs,
                                          **kw)
     assert torch.equal(got.cpu(), ref)
+
+
+def _k5_row_call(gpu, seg, segb, sched, tabs, kw, staged=True):
+    """K5 in its "row" regime on ``seg``, its output and scratch from
+    torch.empty over poisoned memory (so every block must be written):
+    one launch, counted in ``row_launches``, and one lookup table; each
+    row staged in shared memory or not, as ``staged`` says. Returns the
+    output and the (S, 4) stats on the host."""
+    S, L = seg.shape
+    B = kw["blocks_per_segment"]
+    assert huffman_decode.k5_regime(S, L, B) == "row"
+    poison = torch.full((S * B * 256 + S * L * 8 + (4 << 20),), 0x7F,
+                        dtype=torch.uint8, device=gpu)
+    torch.cuda.synchronize()
+    del poison
+    fn = huffman_decode.decode_segments
+    before = (fn.launches, fn.row_launches,
+              huffman_decode.decode_lut.launches)
+    got = fn(seg, segb, sched, *tabs, **kw)
+    assert (fn.launches, fn.row_launches,
+            huffman_decode.decode_lut.launches) == tuple(
+                b + 1 for b in before)
+    stats = fn.stats.cpu()
+    assert stats.shape == (S, len(huffman_decode.K5_ROW_STATS))
+    rounds, n_sub, threads, in_smem = stats.T
+    assert bool((in_smem == int(staged)).all())
+    nblk = segb.cpu().clamp(min=0)
+    assert bool(((rounds == 0) == (nblk == 0)).all())
+    assert bool((threads > 0).all())
+    U = huffman_decode.PADDED_ROW_SUB_BITS
+    assert int(n_sub.max()) <= -(-(8 * L + 32) // U)
+    return got, stats
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+def test_padded_row_regime_on_two_row_lanes(gpu, shift):
+    """K5's "row" regime on real two-MCU-row segments of a 3840-wide q90
+    frame (the benchmark cell's lanes) at L = 32,768 and B = 2,880, staged
+    in shared memory, the matrix 16-byte aligned and one byte off; equal
+    to its plain version (run on the host)."""
+    S, L, B = 8, 32768, 2880
+    rows, dec = _long_rows(gpu, S, L, seed=B, mcu_rows=2)
+    st = dec.state
+    segb = np.full(S, B, np.int32)
+    segb[2], segb[5] = B // 2, 0
+    tabs = tuple(t.cpu() for t in (st.lo, st.hi, st.offset, st.values))
+    kw = dict(blocks_per_segment=B, n_components=3)
+    sched = dec._comp_sched.cpu()
+    ref = huffman_decode.decode_segments_plain(
+        torch.from_numpy(rows), torch.from_numpy(segb), sched, *tabs, **kw)
+    buf = torch.zeros(S * L + 32, dtype=torch.uint8, device=gpu)
+    view = buf[16 + shift:16 + shift + S * L].view(S, L)
+    view.copy_(torch.from_numpy(rows))
+    got, stats = _k5_row_call(gpu, view, torch.from_numpy(segb).to(gpu),
+                              sched.to(gpu), tuple(t.to(gpu) for t in tabs),
+                              kw)
+    assert torch.equal(got.cpu(), ref)
+    # 13.3-27.2 KB segments in subsequences of U bits
+    U = huffman_decode.PADDED_ROW_SUB_BITS
+    assert int(stats[:, 1].max()) >= 8 * 13000 // U
+
+
+# rows of chip_smoke.k5_rows at the regime's shortest rows and at the
+# cell's, one row and an odd count; the wrapper's U = 2,048 and U = 64
+# (many subsequences a thread, many sync rounds)
+@pytest.mark.parametrize("sub_bits", [2048, 64])
+@pytest.mark.parametrize("malformed", [False, True])
+@pytest.mark.parametrize("S,L", [(67, 4096), (67, 32768), (1, 4096)])
+def test_padded_row_regime_on_adversarial_rows(gpu, monkeypatch, S, L,
+                                               malformed, sub_bits):
+    """K5's "row" regime on chip_smoke.k5_rows (random rows without guard
+    bytes, cut rows, long codes, all-zero and all-0xFF rows, one symbol a
+    block, a DC that passes int16), with seg_blocks of 0, of B and random,
+    a luma-only and a 4:2:0 schedule, the session's tables and malformed
+    ones, on the matrix and on a view one byte past a word boundary; equal
+    to its plain version."""
+    from chip_smoke import k5_rows
+
+    monkeypatch.setattr(huffman_decode, "PADDED_ROW_SUB_BITS", sub_bits)
+    dec, tabs = _tables(gpu)
+    if malformed:
+        tabs = _malformed_tables(gpu, seed=L + S)
+    rng = np.random.default_rng(L + S + sub_bits)
+    B = 120
+    # the last S of k5_rows' rows: one row is its DC ramp
+    rows = torch.from_numpy(k5_rows(dec, max(S, 7), L, B, rng)[-S:]).to(gpu)
+    shifted = torch.empty(S * L + 8, dtype=torch.uint8, device=gpu)
+    shifted[1:1 + S * L] = rows.view(-1)
+    segb = rng.integers(0, B + 1, S).astype(np.int32)
+    segb[:8] = B
+    segb[8:9] = 0
+    segb = torch.from_numpy(segb).to(gpu)
+    kw = dict(blocks_per_segment=B, n_components=3)
+    rounds = []
+    for sched in (np.zeros(B), np.resize(dec.comp_idx[:6], B)):
+        sched = torch.from_numpy(sched.astype(np.int32)).to(gpu)
+        ref = huffman_decode.decode_segments_plain(rows, segb, sched, *tabs,
+                                                   **kw)
+        for seg in (rows, shifted[1:1 + S * L].view(S, L)):
+            got, stats = _k5_row_call(gpu, seg, segb, sched, tabs, kw)
+            assert torch.equal(got, ref)
+            rounds.append(int(stats[:, 0].max()))
+    if sub_bits == 64 and S > 1:
+        assert max(rounds) >= 2
+
+
+@pytest.mark.parametrize("sub_bits", [2048, 64])
+def test_padded_row_regime_past_the_staging_limit(gpu, monkeypatch,
+                                                  sub_bits):
+    """K5's "row" regime on rows too long for shared memory (L = 262,144:
+    peeks read global memory), real one-MCU-row segments (one row with
+    random bytes after its segment) and a random row, at the wrapper's
+    U = 2,048 and at U = 64; equal to its plain version (run on the
+    host)."""
+    monkeypatch.setattr(huffman_decode, "PADDED_ROW_SUB_BITS", sub_bits)
+    S, L, B = 3, 262144, 1440
+    real, dec = _long_rows(gpu, 8, L, seed=L)
+    rng = np.random.default_rng(sub_bits)
+    rows = np.concatenate([real[:2], rng.integers(0, 256, (1, L)).astype(
+        np.uint8)])
+    st = dec.state
+    segb = np.array([B, B, B // 3], np.int32)
+    tabs = tuple(t.cpu() for t in (st.lo, st.hi, st.offset, st.values))
+    kw = dict(blocks_per_segment=B, n_components=3)
+    sched = dec._comp_sched.cpu()
+    ref = huffman_decode.decode_segments_plain(
+        torch.from_numpy(rows), torch.from_numpy(segb), sched, *tabs, **kw)
+    got, _stats = _k5_row_call(gpu, torch.from_numpy(rows).to(gpu),
+                               torch.from_numpy(segb).to(gpu), sched.to(gpu),
+                               tuple(t.to(gpu) for t in tabs), kw,
+                               staged=False)
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_padded_lane_regime_on_long_rows(gpu):
+    """K5's "lane" regime on long rows, where k5_regime keeps it for their
+    number (S = K5_ROW_MAX_ROWS + 1 rows at L = 32,768: 129 CTAs,
+    unstaged, no lane buffer): real one-MCU-row segments of a 3840-wide q90 frame
+    at B = 1,440, cycled over the rows, with seg_blocks of B, 0 and random;
+    one launch, no "row" launch, no stats; every row equal to its plain
+    version (run on the host on the distinct rows)."""
+    S, L, B = huffman_decode.K5_ROW_MAX_ROWS + 1, 32768, 1440
+    assert huffman_decode.k5_regime(S, L, B) == "lane"
+    real, dec = _long_rows(gpu, 8, L, seed=S)
+    st = dec.state
+    rng = np.random.default_rng(S)
+    nb = np.concatenate([[B, 0], rng.integers(0, B + 1, 6)]).astype(np.int32)
+    tabs = tuple(t.cpu() for t in (st.lo, st.hi, st.offset, st.values))
+    kw = dict(blocks_per_segment=B, n_components=3)
+    sched = dec._comp_sched.cpu()
+    ref = huffman_decode.decode_segments_plain(
+        torch.from_numpy(real), torch.from_numpy(nb), sched, *tabs, **kw)
+    pick = torch.arange(S) % 8
+    rows = torch.from_numpy(real).to(gpu)[pick.to(gpu)]
+    segb = torch.from_numpy(nb).to(gpu)[pick.to(gpu)]
+    poison = torch.full((S * B * 256 + (4 << 20),), 0x7F, dtype=torch.uint8,
+                        device=gpu)
+    torch.cuda.synchronize()
+    del poison
+    fn = huffman_decode.decode_segments
+    before = (fn.launches, fn.row_launches,
+              huffman_decode.decode_lut.launches)
+    got = fn(rows, segb, sched.to(gpu), *(t.to(gpu) for t in tabs), **kw)
+    assert (fn.launches, fn.row_launches,
+            huffman_decode.decode_lut.launches) == (
+                before[0] + 1, before[1], before[2] + 1)
+    assert fn.stats is None
+    for i in range(8):
+        assert torch.equal(got[pick.to(gpu) == i].cpu(),
+                           ref[i].expand(int((pick == i).sum()), B, 64))
+
+
+def test_decode_launch_span_names_the_k5_regime(gpu):
+    """The huffman stage's ``decode.launch`` span carries ``k5_regime``:
+    "row" on the benchmark cell's dispatch (4 frames of 3840x2160 q90, a
+    restart every two MCU rows: 272 lanes of 2,880 blocks, L = 32,768),
+    where every K5 launch is a "row" one, and "lane" on short lanes asked
+    for K5 (256x128, a restart every MCU); planes equal to the
+    host-entropy route's."""
+    from chip_smoke import synth_frames
+    from video_coding_tpu_torch.runtime import trace
+
+    enc = JpegEncoderSession(Parameters.c420(3840, 2160, 90), 480,
+                             device=gpu)
+    streams = enc.encode_device_batch(synth_frames(4, 17, 3840, 2160))
+    bits = BitReader(streams[0])
+    header = Header.decode(bits)
+    cell = (header, [s[bits.bit_pos >> 3:] for s in streams])
+    for (header, payloads), regime in ((cell, "row"),
+                                       (_streams(gpu), "lane")):
+        dec = JpegDecoderSession(header, device=gpu,
+                                 device_huffman="pallas")
+        fn = huffman_decode.decode_segments
+        before = (fn.launches, fn.row_launches)
+        trace.start()
+        try:
+            got = dec.decode_device_batch(payloads)
+        finally:
+            rec = trace.stop()
+        launched = (fn.launches - before[0], fn.row_launches - before[1])
+        assert launched == ((1, 1) if regime == "row" else (1, 0))
+        spans = [s for s in rec.spans if s.name == "decode.launch"
+                 and s.attrs.get("stage") == "huffman"]
+        assert [s.attrs.get("k5_regime") for s in spans] == [regime]
+        if regime == "row":
+            assert spans[0].attrs["route"] == "pallas"
+        ref = dec.decode_batch(payloads)
+        for g, r in zip(got, ref):
+            for gp, rp in zip(g, (r.y.data, r.u.data, r.v.data)):
+                assert np.array_equal(gp.cpu().numpy()[:rp.shape[0],
+                                                       :rp.shape[1]], rp)

@@ -686,6 +686,149 @@ def test_padded_reader_model_decodes_as_plain(L, luma_only):
         assert int(ref[6, :, 0].max()) > 32767        # the DC ramp row
 
 
+class _RowStagedWordsModel(_PaddedWordsModel):
+    """The word source of K5's "row" regime: the CTA of row s has copied
+    the 16-byte chunks of memory from the boundary at or below the row's
+    first byte up to its last byte (bytes outside the matrix as zero), and
+    a word past them reads as zero. The matrix's first byte lies base16
+    bytes past a 16-byte boundary."""
+
+    def __init__(self, seg: np.ndarray, s: int, base16: int):
+        super().__init__(seg, s, base16 & 3, staged=False)
+        L = seg.shape[1]
+        a0 = base16 + s * L
+        g0 = a0 & ~15
+        self.n_chunks = (a0 + L - g0 + 15) // 16
+        first = (g0 - (base16 - (base16 & 3))) >> 2
+        self.last = first + 4 * self.n_chunks - 1
+
+
+def _row_stage_bytes(L: int) -> int:
+    """Shared-memory bytes K5's "row" regime keeps for a staged row."""
+    text = (CSRC / "huffman_decode_padded.cu").read_text()
+    assert "return (long long)(L + 30) / 16 * 16;" in text
+    return (L + 30) // 16 * 16
+
+
+# every 16-byte alignment of the matrix, L % 16 != 0 (67, 131, 259, 4099)
+# and tile-multiple window counts (131, 259), the last row of the matrix
+@pytest.mark.parametrize("L", [64, 67, 131, 259, 2048, 4099])
+def test_row_staged_reader_model_matches_plain_peek(L):
+    rng = np.random.default_rng(L + 7)
+    S = 3
+    seg = rng.integers(0, 256, (S, L)).astype(np.uint8)
+    peek = huffman_decode._window_peek(_t(seg), 1,
+                                       _k5_constant("kWindowTile"))
+    pos = np.concatenate([np.arange(8 * L + 300),
+                          8 * L + rng.integers(300, 1 << 20, 100)])
+    want = [peek(torch.full((S,), int(p), dtype=torch.int64)).tolist()
+            for p in pos]
+    for base16 in range(16):
+        readers = []
+        for s in range(S):
+            rd = _PaddedReaderModel(seg, s, base16 & 3)
+            words = _RowStagedWordsModel(seg, s, base16)
+            assert 16 * words.n_chunks <= _row_stage_bytes(L)
+            rd.win = _BitWindowModel(words)
+            readers.append(rd)
+        for p, w in zip(pos, want):
+            assert [r.peek16(int(p)) for r in readers] == w, (base16, int(p))
+
+
+# --- K5's regime ------------------------------------------------------------
+
+# the benchmark cell's lanes: 272 two-MCU-row segments of a 4K frame
+CELL_SHAPE = (272, 32768, 2880)
+# one 1080p frame at a restart every MCU (paths A, F, H; K5's phase 7 row)
+# and 16 of them a dispatch, at the lane buckets such segments take
+SHORT_1080P = [(S, L, 6) for S in (8160, 16 * 8160)
+               for L in (32, 64, 128, 256, 512, 1024)]
+
+
+def test_k5_regime_row_at_the_cell_shape():
+    assert huffman_decode.k5_regime(*CELL_SHAPE) == "row"
+
+
+@pytest.mark.parametrize("S,L,B", SHORT_1080P)
+def test_k5_regime_lane_on_short_1080p_lanes(S, L, B):
+    assert huffman_decode.k5_regime(S, L, B) == "lane"
+
+
+@pytest.mark.parametrize("S", [1, 16, 272, 1024, 1088, 2048, 4096])
+@pytest.mark.parametrize("B", [6, 240, 2880])
+def test_k5_regime_boundary_in_L(S, B):
+    """"row" from max(K5_ROW_MIN_BYTES, S * K5_ROW_BYTES_PER_ROW) bytes on,
+    "lane" below it, at S up to K5_ROW_MAX_ROWS and any B."""
+    edge = max(huffman_decode.K5_ROW_MIN_BYTES,
+               S * huffman_decode.K5_ROW_BYTES_PER_ROW)
+    assert huffman_decode.k5_regime(S, edge - 1, B) == "lane"
+    assert huffman_decode.k5_regime(S, edge, B) == "row"
+    assert huffman_decode.k5_regime(S, (1 << 28) - 1, B) == "row"
+    # blocks a row past the row regime's 24-bit place in the schedule
+    assert huffman_decode.k5_regime(S, edge, 1 << 24) == "lane"
+
+
+@pytest.mark.parametrize("L", [4096, 8192, 32768, 262144])
+@pytest.mark.parametrize("B", [6, 2880])
+def test_k5_regime_boundary_in_S(L, B):
+    """"lane" past min(L // K5_ROW_BYTES_PER_ROW, K5_ROW_MAX_ROWS) rows,
+    where the "lane" regime's serial chains beat a wave of CTAs a row;
+    "row" up to it; "lane" at 8,160 rows (one 1080p frame at ri = 1)."""
+    edge = min(L // huffman_decode.K5_ROW_BYTES_PER_ROW,
+               huffman_decode.K5_ROW_MAX_ROWS)
+    assert huffman_decode.k5_regime(edge, L, B) == "row"
+    assert huffman_decode.k5_regime(edge + 1, L, B) == "lane"
+    assert huffman_decode.k5_regime(8160, L, B) == "lane"
+
+
+def test_k5_regime_reads_the_shape_only(monkeypatch):
+    """The regime is a function of (S, L, B): the same for the same shape
+    whatever the environment or the row regime's subsequence length."""
+    import inspect
+
+    assert list(inspect.signature(huffman_decode.k5_regime).parameters) == \
+        ["S", "L", "blocks_per_segment"]
+    shapes = [CELL_SHAPE, *SHORT_1080P, (16, 4096, 240), (2, 262144, 1440)]
+    before = [huffman_decode.k5_regime(*x) for x in shapes]
+    monkeypatch.setattr(huffman_decode, "PADDED_ROW_SUB_BITS", 64)
+    monkeypatch.setenv("VCT_K5_REGIME", "lane")
+    assert [huffman_decode.k5_regime(*x) for x in shapes] == before
+    assert set(before) == set(huffman_decode.K5_REGIMES)
+
+
+def _c_entry_params(name: str) -> list[str]:
+    """The parameter types of a C entry point of csrc/, as ctypes would
+    pass them: "P" a pointer, "I" an int, "L" a long long."""
+    for src in sorted(CSRC.glob("*.cu")):
+        m = re.search(rf'extern "C" int {name}\((.*?)\)', src.read_text(),
+                      re.S)
+        if m:
+            break
+    else:
+        raise AssertionError(f"{name}: no C entry in csrc/")
+    kinds = []
+    for param in m.group(1).split(","):
+        param = " ".join(param.split())
+        kinds.append("P" if "*" in param else
+                     "L" if param.startswith("long long") else "I")
+    return kinds
+
+
+@pytest.mark.parametrize("name", sorted(__import__(
+    "video_coding_tpu_torch.kernels", fromlist=["_SIGNATURES"])._SIGNATURES))
+def test_kernel_signature_matches_its_c_entry(name):
+    """kernels._SIGNATURES gives each C entry point its arity and types
+    (bool parameters are ints, the last the stream pointer)."""
+    import ctypes
+
+    from video_coding_tpu_torch import kernels
+
+    names = {ctypes.c_void_p: "P", ctypes.c_int: "I",
+             ctypes.c_longlong: "L"}
+    assert [names[t] for t in kernels._SIGNATURES[name]] == \
+        _c_entry_params(name)
+
+
 def test_unsaturated_dc_matches_pallas():
     """A luma DC that climbs by 2047 a block passes int16 in K5's plain
     version and the Pallas kernel alike; K1 saturates it."""

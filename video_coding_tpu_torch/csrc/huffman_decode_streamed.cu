@@ -19,38 +19,19 @@
 //   ~200 MB, 0.06 ms of bytes.
 //
 // What the design does about it: a self-synchronising parallel decode
-//   (after Weißenberger & Schmidt, ICPP 2018). The row's data is cut into
-//   subsequences of U bits, one thread each. The decoder state at a symbol
-//   boundary is (bit position, DC/AC phase, zigzag position, place of the
-//   block in the schedule's period P); a peek depends on the bit position
-//   only, so decoding from a state reads exactly what the sequential lane
-//   reads there.
-//   1. Sync: thread u decodes from state (u·U, DC, 0, place 0) — a guess —
-//      up to the first symbol boundary at or past (u+1)·U, its exit state,
-//      counting the blocks whose DC symbol starts inside the subsequence
-//      and their DC differences per component. Then, round after round,
-//      each subsequence whose entry (its predecessor's exit) changed is
-//      decoded again from it, until no exit changes. Subsequence 0 starts
-//      from the true state, so the fixed point is the sequential decode;
-//      the worst case is one subsequence a round, a sequential walk.
-//      P consecutive blocks that consume no bits repeat forever (a failed
-//      DC match reads nothing and a failed AC match is an EOB): such a
-//      subsequence owns every later block, and the ones after it none.
-//   2. Scan: exclusive prefix sums over the row's subsequences of the
-//      block counts (saturating at B) and the DC sums (int32, wrapping —
-//      the plain version's int64 sum cast to int32) give each
-//      subsequence's first block index and DC predictors.
-//   3. Write: each thread decodes the blocks whose DC symbol starts in its
-//      subsequence (past its end if need be; the last subsequence is open)
-//      into an int16 shared buffer and writes each whole as sixteen 16-byte
-//      stores; the CTA writes blocks [seg_blocks[s], B) as zeros. Every
-//      output byte is written once, with no zeroing pass.
-//   The subsequences stop a little past the row's last nonzero byte; the
-//   last one takes whatever the chain decodes beyond it (the zero padding,
-//   past the row). Symbols go through the direct-lookup table
-//   (huffman_decode_lut.cuh); the bit cursor reads aligned 32-bit words.
+//   (after Weißenberger & Schmidt, ICPP 2018; huffman_decode_sync.cuh,
+//   shared with K5's "row" regime): the row's data is cut into
+//   subsequences of U bits, one thread each at a time, synchronised in
+//   rounds from guessed states, then an exclusive scan of their block
+//   counts and DC sums, then each thread writes its subsequences' blocks
+//   whole; the CTA writes blocks [seg_blocks[s], B) as zeros. Every output
+//   byte is written once, with no zeroing pass. The subsequences stop a
+//   little past the row's last nonzero byte; the last one takes whatever
+//   the chain decodes beyond it (the zero padding, past the row). Symbols
+//   go through the direct-lookup table (huffman_decode_lut.cuh); the bit
+//   cursor reads aligned 32-bit words.
 
-#include "huffman_decode_lut.cuh"
+#include "huffman_decode_sync.cuh"
 
 namespace {
 
@@ -60,9 +41,6 @@ constexpr int kThreads = 64;  // a row's (one CTA)
 constexpr int kWarps = kThreads / 32;
 // how far before its subsequence round 0's guessed decode begins
 constexpr int kWarmBits = 1024;
-constexpr unsigned long long kNever = 0x7FFFFFFFull << 32;
-// per-row stats: sync rounds, subsequences, threads
-constexpr int kStats = 3;
 // Rows of up to this many bytes are copied into shared memory first: the
 // lanes of a warp refill their bit windows at different symbols, and a
 // refill from global memory would hold the whole warp for its latency
@@ -108,122 +86,7 @@ struct RowReader {
   }
 };
 
-__device__ inline unsigned long long pack(int bitpos, bool in_ac, int cof,
-                                          int place) {
-  return ((unsigned long long)(unsigned)bitpos << 32) |
-         ((unsigned long long)place << 8) | (unsigned)(cof << 1) |
-         (unsigned)in_ac;
-}
-
-struct Row {
-  RowReader rd;
-  Tables tb;
-  Lut lut;
-  const uint8_t* staged;  // components of the first places, in shared memory
-  const int32_t* sched;
-  int C, P, B;
-  __device__ int comp(int place) const {
-    return sched_comp(staged, sched, place, C);
-  }
-  __device__ int next(int place) const { return place + 1 == P ? 0 : place + 1; }
-};
-
-// Pass 1 for one subsequence: from entry state e up to the first symbol
-// boundary at or past bit `end`. Returns the exit state; `cnt` and `dcs`
-// get the blocks whose DC symbol starts before `end` and their DC sums.
-__device__ unsigned long long sync_sub(Row& r, unsigned long long e, int end,
-                                       int& cnt, int (&dcs)[kMaxComponents]) {
-  cnt = 0;
-#pragma unroll
-  for (int c = 0; c < kMaxComponents; ++c) dcs[c] = 0;
-  if (e == kNever) return kNever;
-  int bitpos = (int)(e >> 32);
-  int place = (int)((e >> 8) & 0xFFFFFF);
-  int cof = (int)((e >> 1) & 0x7F);
-  bool in_ac = e & 1;
-  int comp = r.comp(place);
-  int zstart = -1, zrun = 0;
-  while (bitpos < end) {
-    if (!in_ac) {
-      // P blocks in a row that consumed no bits: the state repeats forever
-      if (bitpos == zstart) {
-        if (++zrun >= r.P) {
-          cnt = r.B;
-          return kNever;
-        }
-      } else {
-        zstart = bitpos;
-        zrun = 0;
-      }
-    }
-    int used, run, cat, val;
-    decode_symbol(r.rd, r.tb, r.lut, comp + (in_ac ? r.C : 0), in_ac, bitpos,
-                  used, run, cat, val);
-    bitpos += used;
-    if (!in_ac) {
-      ++cnt;
-      add_dc(dcs, comp, val);
-      in_ac = true;
-      cof = 1;
-    } else if ((run == 0 && cat == 0) || cof + run + 1 >= 64) {
-      in_ac = false;
-      cof = 0;
-      place = r.next(place);
-      comp = r.comp(place);
-    } else {
-      cof += run + 1;
-    }
-  }
-  return pack(bitpos, in_ac, cof, place);
-}
-
-// Pass 3 for one subsequence: finish the block that an earlier subsequence
-// owns, then decode and write blocks blk.. while their DC symbol starts
-// before `end` and blk < nblk.
-__device__ void write_sub(Row& r, unsigned long long e, int end, int blk,
-                          int (&dc)[kMaxComponents], int nblk, BlockBuf& bb,
-                          int32_t* dst) {
-  if (e == kNever || blk >= nblk) return;
-  int bitpos = (int)(e >> 32);
-  int place = (int)((e >> 8) & 0xFFFFFF);
-  int cof = (int)((e >> 1) & 0x7F);
-  bool in_ac = e & 1;
-  int comp = r.comp(place);
-  int used, run, cat, val;
-  while (in_ac) {
-    decode_symbol(r.rd, r.tb, r.lut, comp + r.C, true, bitpos, used, run,
-                  cat, val);
-    bitpos += used;
-    if ((run == 0 && cat == 0) || cof + run + 1 >= 64) {
-      in_ac = false;
-      place = r.next(place);
-      comp = r.comp(place);
-    } else {
-      cof += run + 1;
-    }
-  }
-  while (blk < nblk && bitpos < end) {
-    decode_symbol(r.rd, r.tb, r.lut, comp, false, bitpos, used, run, cat,
-                  val);
-    bitpos += used;
-    const int dcw = add_dc(dc, comp, val);
-    cof = 1;
-    for (;;) {
-      decode_symbol(r.rd, r.tb, r.lut, comp + r.C, true, bitpos, used, run,
-                    cat, val);
-      bitpos += used;
-      if (run == 0 && cat == 0) break;  // EOB
-      const int nc = cof + run;
-      if (nc < 64 && val) bb.put(nc, val);
-      if (nc + 1 >= 64) break;
-      cof = nc + 1;
-    }
-    bb.flush(dst + (size_t)blk * 64, dcw);
-    ++blk;
-    place = r.next(place);
-    comp = r.comp(place);
-  }
-}
+using Row = SyncRow<RowReader>;
 
 // (kThreads, 8): the register cap of 128 a thread that the kernel was tuned
 // with
@@ -247,40 +110,25 @@ __global__ void __launch_bounds__(kThreads, 8) huffman_decode_streamed_kernel(
   const Tables tb =
       stage_tables_lut(smem, lo_g, hi_g, off_g, T, values_g, V, lut_g, lut);
   const int tid = threadIdx.x, nthreads = kThreads;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int lane = tid & 31;
   const int row = blockIdx.x;
   const uint8_t* rowp = segbytes + (size_t)row * L;
   const int nblk = min(max(seg_blocks[row], 0), B);
   int32_t* dst = out + (size_t)row * B * 64;
 
-  int* st = stats + (size_t)row * kStats;
+  int* st = stats + (size_t)row * kSyncStats;
   if (tid == 0) {
     st[0] = st[1] = 0;
     st[2] = nthreads;
   }
 
   // blocks at or past seg_blocks[s] are zeros
-  {
-    int4* z = reinterpret_cast<int4*>(dst + (size_t)nblk * 64);
-    for (int i = tid; i < (B - nblk) * 16; i += nthreads)
-      z[i] = make_int4(0, 0, 0, 0);
-  }
+  zero_blocks_past(dst, nblk, B);
   if (nblk == 0) return;
 
-  // the schedule's smallest period P (sched[i] == sched[i + P] for all i)
   if (tid == 0) s_int = -1;
   __syncthreads();
-  int P = B;
-  for (int p = 1; p < B; ++p) {
-    bool bad = false;
-    for (int i = tid; i + p < B && !bad; i += nthreads)
-      bad = sched_comp(s_comp, comp_sched, i, C) !=
-            sched_comp(s_comp, comp_sched, i + p, C);
-    if (!__syncthreads_or(bad)) {
-      P = p;
-      break;
-    }
-  }
+  const int P = schedule_period(s_comp, comp_sched, B, C);
 
   // stage the row (zero-padded) while finding its last nonzero byte,
   // which bounds the subsequences
@@ -311,8 +159,7 @@ __global__ void __launch_bounds__(kThreads, 8) huffman_decode_streamed_kernel(
   __syncthreads();
   const int n_sub =
       min(max((8 * min(s_int + 1, L) + 32 + U - 1) / U, 1), n_sub_max);
-  // each thread takes a run of consecutive subsequences, so a round
-  // carries a corrected state through all of them
+  // each thread takes a run of consecutive subsequences
   const int per = (n_sub + nthreads - 1) / nthreads;
   const int u0 = min(tid * per, n_sub), u1 = min(u0 + per, n_sub);
 
@@ -330,108 +177,17 @@ __global__ void __launch_bounds__(kThreads, 8) huffman_decode_streamed_kernel(
                   16 * NW, tail_word},
         tb, lut, s_comp, comp_sched, C, P, B};
   const size_t rb = (size_t)row * n_sub_max;
-  volatile unsigned long long* v_exit = rec_exit + rb;
-  unsigned long long* entry = rec_entry + rb;
-  int* cnt = rec_cnt + rb;
-  int* dcs = rec_dc + rb * kMaxComponents;
+  const SubRecords rec{rec_entry + rb, rec_exit + rb, rec_cnt + rb,
+                       rec_dc + rb * kMaxComponents};
 
-  // 1. sync: round 0 from guessed entries, then rounds until no exit moves
-  for (int u = u0; u < u1; ++u) {
-    int c = 0, d[kMaxComponents] = {0, 0, 0, 0};
-    unsigned long long e = u == 0 ? 0ull : pack(u * U, false, 0, 0);
-    if (u > 0) {
-      // a better guess: the state at u·U of a decode begun kWarmBits
-      // earlier from the same guess (or from the true start)
-      int c_, d_[kMaxComponents];
-      const int b0 = max(u * U - kWarmBits, 0);
-      const unsigned long long g =
-          sync_sub(r, b0 == 0 ? 0ull : pack(b0, false, 0, 0), u * U, c_, d_);
-      if (g != kNever) e = g;
-    }
-    unsigned long long x = 0;
-    if (u < n_sub - 1) x = sync_sub(r, e, (u + 1) * U, c, d);
-    entry[u] = e;
-    v_exit[u] = x;
-    cnt[u] = c;
-    for (int k = 0; k < kMaxComponents; ++k) dcs[u * kMaxComponents + k] = d[k];
-  }
-  int rounds = 1;
-  for (;;) {
-    __syncthreads();
-    ++rounds;
-    bool changed = false;
-    for (int u = max(u0, 1); u < min(u1, n_sub - 1); ++u) {
-      const unsigned long long e = v_exit[u - 1];
-      if (e == entry[u]) continue;
-      int c, d[kMaxComponents];
-      const unsigned long long x = sync_sub(r, e, (u + 1) * U, c, d);
-      entry[u] = e;
-      changed |= x != v_exit[u];
-      v_exit[u] = x;
-      cnt[u] = c;
-      for (int k = 0; k < kMaxComponents; ++k)
-        dcs[u * kMaxComponents + k] = d[k];
-    }
-    if (!__syncthreads_or(changed)) break;
-  }
-
-  // 2. exclusive prefix of block counts (saturating at B) and DC sums
-  int carry[kMaxComponents + 1] = {0, 0, 0, 0, 0};
-  for (int base = 0; base < n_sub; base += nthreads) {
-    const int u = base + tid;
-    int v[kMaxComponents + 1] = {0, 0, 0, 0, 0};
-    if (u < n_sub) {
-      v[0] = min(cnt[u], B);
-      for (int k = 0; k < kMaxComponents; ++k)
-        v[k + 1] = dcs[u * kMaxComponents + k];
-    }
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-#pragma unroll
-      for (int k = 0; k <= kMaxComponents; ++k) {
-        const int w = __shfl_up_sync(~0u, v[k], o);
-        if (lane >= o)
-          v[k] = k ? (int)((unsigned)v[k] + (unsigned)w) : min(v[k] + w, B);
-      }
-    }
-    if (lane == 31)
-      for (int k = 0; k <= kMaxComponents; ++k) s_tot[warp][k] = v[k];
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k <= kMaxComponents; ++k) {
-      int excl = __shfl_up_sync(~0u, v[k], 1);
-      if (lane == 0) excl = 0;
-      int add = carry[k], tot = carry[k];
-      for (int w = 0; w < nthreads / 32; ++w) {
-        const int t = s_tot[w][k];
-        if (w < warp)
-          add = k ? (int)((unsigned)add + (unsigned)t) : min(add + t, B);
-        tot = k ? (int)((unsigned)tot + (unsigned)t) : min(tot + t, B);
-      }
-      v[k] = k ? (int)((unsigned)add + (unsigned)excl) : min(add + excl, B);
-      carry[k] = tot;
-    }
-    if (u < n_sub) {
-      cnt[u] = v[0];
-      for (int k = 0; k < kMaxComponents; ++k)
-        dcs[u * kMaxComponents + k] = v[k + 1];
-    }
-    __syncthreads();
-  }
-
-  // 3. write: each subsequence's blocks, whole
+  const int rounds =
+      sync_subsequences(r, U, kWarmBits, n_sub, u0, u1, rec);
+  scan_subsequences<kThreads>(n_sub, B, rec, s_tot);
   BlockBuf bb{reinterpret_cast<int16_t*>(reinterpret_cast<char*>(smem) +
                                          lut_smem_bytes(T, V)) +
               tid * kBufHalves};
   bb.clear();
-  for (int u = u0; u < u1; ++u) {
-    int dc[kMaxComponents];
-    for (int k = 0; k < kMaxComponents; ++k)
-      dc[k] = dcs[u * kMaxComponents + k];
-    write_sub(r, u == 0 ? 0ull : v_exit[u - 1],
-              u == n_sub - 1 ? INT_MAX : (u + 1) * U, cnt[u], dc, nblk, bb,
-              dst);
-  }
+  write_subsequences(r, U, n_sub, u0, u1, nblk, rec, bb, dst);
   if (tid == 0) {
     st[0] = rounds;
     st[1] = n_sub;
@@ -442,7 +198,7 @@ __global__ void __launch_bounds__(kThreads, 8) huffman_decode_streamed_kernel(
 
 // lut: lut_entries(T) int16, where the lookup table is built first;
 // sub_bits: U; scratch: S · n_sub_max · 40 bytes (entry and exit states,
-// block counts, DC sums); stats: (S, kStats) int32.
+// block counts, DC sums); stats: (S, kSyncStats) int32.
 extern "C" int vct_k6_huffman_decode_streamed(
     const uint8_t* segbytes, int S, int L, const int32_t* seg_blocks,
     const int32_t* comp_sched, int B, int C, const int32_t* lo,

@@ -24,7 +24,9 @@ saturated, and where the symbol cap sits:
 ``decode_segments`` (K5, ``decode_segments_pallas``)
     lane s is row s of a padded (S, L) matrix; peeks read the reference's
     byte-granular 32-bit windows with a clamped index; values not
-    saturated; K1's cap.
+    saturated; K1's cap (it never binds: a block ends within 64 symbols).
+    Two regimes by shape (``k5_regime``): a thread a row for many short
+    rows, a CTA a row (K6's self-synchronising decode) for long ones.
 ``decode_segments_streamed`` (K6, ``decode_segments_pallas_bs``)
     as K5 with 16-bit-stride windows, for long segments: whole blocks
     are written out (blocks at or past ``seg_blocks[s]`` as zeros) and
@@ -54,6 +56,7 @@ import numpy as np
 
 from .. import kernels
 from ..device import resolve_device
+from ..runtime import trace
 from .decode_tables import (auto_strategy, expand_luts, pack_segments,
                             range_tables)
 
@@ -74,8 +77,14 @@ LUT_FALLBACK = 0xC000
 # K6's subsequence length in bits (one a thread at a time; see
 # csrc/huffman_decode_streamed.cu)
 STREAMED_SUB_BITS = 1024
-# what K6 records for each row
+# what K6 records for each row; K5's "row" regime records the same and
+# whether the row was staged in shared memory (1) or read from global (0)
 STREAMED_STATS = ("rounds", "subsequences", "threads")
+K5_ROW_STATS = STREAMED_STATS + ("staged",)
+# K5's regimes, in the order of the C entry's ``regime`` argument, and the
+# "row" regime's subsequence length in bits (read at each call)
+K5_REGIMES = ("lane", "row")
+PADDED_ROW_SUB_BITS = 2048
 
 
 def max_steps(blocks_per_segment: int) -> int:
@@ -527,6 +536,34 @@ def _check_segments(segbytes, seg_blocks, comp_sched, lo, hi, offset, values,
     _check(rows, segbytes.device)
 
 
+# K5 decodes a CTA a row (the "row" regime) where rows take at least
+# K5_ROW_MIN_BYTES and there are at most one of them for every
+# K5_ROW_BYTES_PER_ROW bytes of a row, and at most K5_ROW_MAX_ROWS
+K5_ROW_MIN_BYTES = 4096
+K5_ROW_BYTES_PER_ROW = 4
+K5_ROW_MAX_ROWS = 4096
+
+
+def k5_regime(S: int, L: int, blocks_per_segment: int) -> str:
+    """K5's regime for S rows of L bytes and B blocks, by shape alone:
+    ``"row"`` (a CTA a row, self-synchronising) where a row holds several
+    subsequences (L >= K5_ROW_MIN_BYTES) and there are few enough rows
+    (S <= min(L // K5_ROW_BYTES_PER_ROW, K5_ROW_MAX_ROWS)), else
+    ``"lane"`` (a thread a row, 32 rows a CTA). The "lane" regime's time
+    follows its longest row's serial chain whatever S, the "row" regime's
+    grows with S past a wave of CTAs, so the rows it wins on grow with L.
+    Rows of 2^24 blocks or more (past the row regime's state) keep
+    ``"lane"``. From a sweep of both regimes on the H100 (PERF.md §6):
+    "row" is 1.35-17.6x faster inside the rule, and slower at S = 2,048 of
+    L = 4,096 (0.85x), S = 4,096 of 8,192 (0.93x), S = 8,160 of 16,384 and
+    32,768 (0.80x, 0.95x) and everywhere past S = 1,088 at L = 1,024."""
+    if (L >= K5_ROW_MIN_BYTES
+            and S <= min(L // K5_ROW_BYTES_PER_ROW, K5_ROW_MAX_ROWS)
+            and blocks_per_segment < 1 << 24):
+        return "row"
+    return "lane"
+
+
 def decode_segments(segbytes: torch.Tensor, seg_blocks: torch.Tensor,
                     comp_sched: torch.Tensor, lo: torch.Tensor,
                     hi: torch.Tensor, offset: torch.Tensor,
@@ -548,19 +585,39 @@ def decode_segments(segbytes: torch.Tensor, seg_blocks: torch.Tensor,
     if L >= 1 << 28:
         raise ValueError("segbytes: rows must be shorter than 2^28 bytes")
     dev = segbytes.device
+    regime = k5_regime(S, L, B)
+    trace.attrs(k5_regime=regime)
     lut = _lut_buffer(lo.shape[0], dev)     # built by the entry point
+    U = PADDED_ROW_SUB_BITS
+    scratch = stats = None
+    if regime == "row":
+        n_sub_max = min(-(-(8 * L + 32) // U), (2**31 - 1) // U)
+        # per row: the records of n_sub_max subsequences (entry and exit
+        # states, 8 bytes each; block count and 4 DC sums, 4 bytes each),
+        # rounded up to 16 bytes
+        scratch = torch.empty(S * -(-40 * n_sub_max // 16) * 2,
+                              dtype=torch.int64, device=dev)
+        stats = torch.empty((S, len(K5_ROW_STATS)), dtype=torch.int32,
+                            device=dev)
     out = torch.empty((S, B, 64), dtype=torch.int32, device=dev)
     kernels.launch("vct_k5_huffman_decode_padded", segbytes.data_ptr(), S, L,
                    seg_blocks.data_ptr(), comp_sched.data_ptr(), B, C,
                    lo.data_ptr(), hi.data_ptr(), offset.data_ptr(),
                    lo.shape[0], values.data_ptr(), values.shape[0],
-                   lut.data_ptr(), max_steps(B), out.data_ptr())
+                   lut.data_ptr(), max_steps(B), K5_REGIMES.index(regime), U,
+                   _ptr(scratch), _ptr(stats), out.data_ptr())
     decode_segments.launches += 1
+    if regime == "row":
+        decode_segments.row_launches += 1
     decode_lut.launches += 1
+    decode_segments.stats = stats
     return out
 
 
 decode_segments.launches = 0
+decode_segments.row_launches = 0    # those of ``launches`` in "row"
+# (S, len(K5_ROW_STATS)) int32 on the card after a "row" launch, else None
+decode_segments.stats = None
 
 
 def decode_segments_streamed(segbytes: torch.Tensor,

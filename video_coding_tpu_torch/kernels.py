@@ -24,7 +24,8 @@ SOURCES = ("huffman_decode.cu", "decode_datapath.cu", "encode_datapath.cu",
            "huffman_encode.cu", "huffman_decode_padded.cu",
            "huffman_decode_streamed.cu", "huffman_decode_staged.cu",
            "pack_stuff.cu", "table_lookup.cu", "huffman_lut.cu")
-HEADERS = ("huffman_decode_common.cuh", "huffman_decode_lut.cuh")
+HEADERS = ("huffman_decode_common.cuh", "huffman_decode_lut.cuh",
+           "huffman_decode_sync.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -49,9 +50,11 @@ _SIGNATURES = {
     "vct_k4_huffman_encode": (_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P,
                               _P, _P),
     # segbytes, S, L, seg_blocks, comp_sched, B, C, lo, hi, offset, T,
-    # values, V, lut, max_steps, out, stream
+    # values, V, lut, max_steps, regime, sub_bits, scratch, stats, out,
+    # stream
     "vct_k5_huffman_decode_padded": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
-                                     _I, _P, _I, _P, _I, _P, _P),
+                                     _I, _P, _I, _P, _I, _I, _I, _P, _P, _P,
+                                     _P),
     # segbytes, S, L, seg_blocks, comp_sched, B, C, lo, hi, offset, T,
     # values, V, lut, sub_bits, n_sub_max, scratch, stats, out, stream
     "vct_k6_huffman_decode_streamed": (_P, _I, _I, _P, _P, _I, _I, _P, _P,
