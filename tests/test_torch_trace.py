@@ -285,3 +285,145 @@ def test_profile_writes_the_program_spans_on_its_clock(tmp_path):
     assert abs(main["ts"] - mm["ts"]) < 1000
     with trace.recording():                      # profile turned it off
         pass
+
+
+# -- the encoder's spans ---------------------------------------------------------
+
+ENCODE_SPANS = {"encode.dispatch", "encode.launch", "encode.fetch",
+                "encode.wire"}
+
+
+def _transcode_session(w=176, h=144, n=4):
+    """q90 streams with a restart every MCU and the session that
+    re-encodes them at q75 with a restart every MCU (9 x 11 MCUs: 99
+    segments a frame)."""
+    streams = [encode("420", synth_frame("420", w, h, 7 + seed), 90, 1)
+               for seed in range(n)]
+    bits = BitReader(streams[0])
+    header = Header.decode(bits)
+    sess = engine.JpegTranscodeSession(header, quality=75,
+                                       restart_interval=1, device="cpu")
+    return sess, [s[bits.bit_pos >> 3:] for s in streams]
+
+
+def _count_launches(monkeypatch, enc) -> list:
+    """The budget of every ladder launch of ``enc``, in order."""
+    budgets, pack = [], enc._pack_graph
+
+    def counted(qc_seg, f, msb, first=0):
+        budgets.append(msb)
+        return pack(qc_seg, f, msb, first)
+    monkeypatch.setattr(enc, "_pack_graph", counted)
+    return budgets
+
+
+def _check_encode_tree(spans, dispatch, frames, outs, budgets, enc):
+    """The encoder's spans of one dispatch: one ``encode.dispatch`` over a
+    datapath launch, a pack launch and a fetch of the lengths a rung, one
+    fetch of the bodies, and the wire join, all in the dispatch."""
+    mine = [s for s in spans if s.dispatch == dispatch]
+    (disp,) = [s for s in mine if s.name == "encode.dispatch"]
+    assert disp.attrs == {"frames": frames, "rungs": len(budgets),
+                          "bytes_out": sum(map(len, outs))}
+    kids = sorted((s for s in mine if s.parent == disp.id),
+                  key=lambda s: s.start_ns)
+    names = [s.name for s in kids]
+    assert names == (["encode.launch"]
+                     + ["encode.launch", "encode.fetch"] * len(budgets)
+                     + ["encode.fetch", "encode.wire"])
+    assert kids[0].attrs == {"stage": "datapath"}
+    S = frames * -(-enc.n_blocks // enc.blocks_per_segment)
+    packs = [s for s in kids if s.name == "encode.launch"][1:]
+    assert [s.attrs for s in packs] == [
+        {"stage": "pack", "route": enc._pack_route(S, b), "segments": S,
+         "budget": b} for b in budgets]
+    fetches = [s for s in kids if s.name == "encode.fetch"]
+    last = len(budgets) - 1
+    assert [s.attrs["rung"] for s in fetches] == list(range(len(budgets))) \
+        + [last]
+    assert [s.attrs["overflow"] for s in fetches] == [1] * last + [0, 0]
+    assert fetches[0].attrs["bytes"] == 8 * (frames + 2)
+    assert fetches[-1].attrs["bytes"] >= frames * max(
+        len(o) for o in outs) - frames * (len(enc._header_bytes) + 2)
+    assert kids[-1].attrs == {}
+    for s in kids:
+        assert s.tid == disp.tid
+        assert disp.start_ns <= s.start_ns <= s.end_ns <= disp.end_ns
+    return disp
+
+
+def test_transcode_batch_iter_records_the_encoder_after_the_decoder(
+        monkeypatch):
+    """Each chunk: pipeline.queue -> decode.dispatch, then the pad clean
+    (a datapath ``encode.launch``), then encode.dispatch, each beside the
+    last (not inside it) on the same worker, every encoder span in the
+    chunk's dispatch; the bytes are those of an unrecorded run."""
+    sess, payloads = _transcode_session()
+    want = sess.transcode_batch(payloads[:2]) \
+        + sess.transcode_batch(payloads[2:])
+    budgets = _count_launches(monkeypatch, sess.encoder)
+    with trace.recording() as rec:
+        got = list(sess.transcode_batch_iter(iter(payloads), batch=2,
+                                             depth=2))
+    assert got == want and len(budgets) == 2
+    queues = sorted((s for s in rec.spans if s.name == "pipeline.queue"),
+                    key=lambda s: s.attrs["dispatch"])
+    assert [q.attrs for q in queues] == [{"dispatch": 0}, {"dispatch": 1}]
+    for k, q in enumerate(queues):
+        (dec,) = [s for s in rec.spans if s.name == "decode.dispatch"
+                  and s.dispatch == q.dispatch]
+        disp = _check_encode_tree(rec.spans, q.dispatch, 2,
+                                  got[2 * k:2 * k + 2], budgets[k:k + 1],
+                                  sess.encoder)
+        (clean,) = [s for s in rec.spans if s.dispatch == q.dispatch
+                    and s.name in ENCODE_SPANS and s.parent == q.id
+                    and s is not disp]
+        assert clean.name == "encode.launch"
+        assert clean.attrs == {"stage": "datapath"}
+        assert dec.parent == clean.parent == disp.parent == q.id
+        assert dec.end_ns <= clean.start_ns <= clean.end_ns <= disp.start_ns
+        assert dec.tid == clean.tid == disp.tid
+    for s in rec.spans:
+        if s.name in ENCODE_SPANS:
+            assert s.dispatch in {q.dispatch for q in queues}
+
+
+def test_encode_device_batch_records_each_ladder_rung(monkeypatch):
+    """A locked budget too small for the frames: the first rung
+    overflows, the second fits; the dispatch counts two rungs, two pack
+    launches and three fetches."""
+    sess, payloads = _transcode_session()
+    stacks = sess.decoder.decode_device_batch_stacked(payloads[:2])
+    frames = [[p[f].numpy() for p in stacks] for f in range(2)]
+    enc = engine.JpegEncoderSession(sess.encoder.params, 1, device="cpu",
+                                    device_pack="pallas")
+    want = enc.encode_device_batch(frames)
+    enc._seg_budget = 16
+    budgets = _count_launches(monkeypatch, enc)
+    with trace.recording() as rec:
+        assert enc.encode_device_batch(frames) == want
+    assert budgets == [16, enc.blocks_per_segment * 24 + 64]
+    (disp,) = [s for s in rec.spans if s.name == "encode.dispatch"]
+    assert disp.parent is None
+    _check_encode_tree(rec.spans, disp.dispatch, 2, want, budgets, enc)
+    # the frames' uploads come before the dispatch, each on its own
+    assert {s.name for s in rec.spans} == ENCODE_SPANS | {"upload"}
+    assert all(s.dispatch == disp.dispatch for s in rec.spans
+               if s.name in ENCODE_SPANS)
+
+
+def test_the_encoder_records_nothing_while_the_recorder_is_off(
+        monkeypatch):
+    made = []
+
+    class Counted(trace._Span):
+        def __init__(self, *a):
+            made.append(a[1])
+            super().__init__(*a)
+    monkeypatch.setattr(trace, "_Span", Counted)
+    sess, payloads = _transcode_session(n=2)
+    out = sess.transcode_batch(payloads)
+    assert made == []
+    with trace.recording() as rec:
+        assert sess.transcode_batch(payloads) == out
+    assert ENCODE_SPANS <= set(made) and len(made) == len(rec.spans)

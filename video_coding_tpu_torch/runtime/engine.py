@@ -1035,42 +1035,46 @@ class JpegEncoderSession:
         segment length, overflow) — the routed entropy encode then the
         wire assembly (the reference's _pack_graph). On a mesh, S is this
         rank's run and the lengths, buffers and overflow flag are joined
-        over the mesh."""
+        over the mesh. An ``encode.launch`` span (stage ``pack``:
+        ``route``, ``segments`` S, ``budget`` the rung's byte budget)."""
         B, n_blocks, n_seg, sp, n_padded, m_out, cap = self._enc_geometry(
             max_seg_bytes)
         S = qc_seg.shape[0]
-        valid = self._valid_batch(f)[first:first + S]
         route = self._pack_route(S, max_seg_bytes)
-        if route == "fused":
-            out, lens, overflow = encode_segments(
-                qc_seg, valid, self._comp_sched, self.state.dctab,
-                self.state.actab, m_out=m_out)
-        else:
-            fn = (pack_stuff.encode_segments_split if route == "split"
-                  else gather_pack.encode_segments_device)
-            st = self.state
-            out, lens, overflow = fn(
-                qc_seg.view(-1, 64), self._comp_sched.repeat(S),
-                st.prev_same_comp, st.dctab, st.actab, blocks_per_segment=B,
-                max_seg_bytes=max_seg_bytes,
-                valid=valid.reshape(-1) if n_padded != n_blocks else None)
-        lens_all = lens
-        if self.mesh is not None:
-            group = flat_group(self.mesh)
-            lens_all = torch.empty(f * sp, dtype=lens.dtype,
-                                   device=lens.device)
-            dist.all_gather_into_tensor(lens_all, lens.contiguous(),
-                                        group=group)
-            overflow = overflow.to(torch.int32).view(1)
-            dist.all_reduce(overflow, op=dist.ReduceOp.MAX, group=group)
-            overflow = overflow[0] != 0
-        bufs, totals = assemble_frames(out, lens, frames=f, n_seg=n_seg,
-                                       cap=cap, lens_all=lens_all,
-                                       first=first)
-        if self.mesh is not None:
-            dist.all_reduce(bufs, group=group)
-        max_len = lens_all.view(f, sp)[:, :n_seg].max()
-        return bufs, totals, max_len, overflow
+        with trace.span("encode.launch", stage="pack", route=route,
+                        segments=S, budget=max_seg_bytes):
+            valid = self._valid_batch(f)[first:first + S]
+            if route == "fused":
+                out, lens, overflow = encode_segments(
+                    qc_seg, valid, self._comp_sched, self.state.dctab,
+                    self.state.actab, m_out=m_out)
+            else:
+                fn = (pack_stuff.encode_segments_split if route == "split"
+                      else gather_pack.encode_segments_device)
+                st = self.state
+                out, lens, overflow = fn(
+                    qc_seg.view(-1, 64), self._comp_sched.repeat(S),
+                    st.prev_same_comp, st.dctab, st.actab,
+                    blocks_per_segment=B, max_seg_bytes=max_seg_bytes,
+                    valid=valid.reshape(-1) if n_padded != n_blocks
+                    else None)
+            lens_all = lens
+            if self.mesh is not None:
+                group = flat_group(self.mesh)
+                lens_all = torch.empty(f * sp, dtype=lens.dtype,
+                                       device=lens.device)
+                dist.all_gather_into_tensor(lens_all, lens.contiguous(),
+                                            group=group)
+                overflow = overflow.to(torch.int32).view(1)
+                dist.all_reduce(overflow, op=dist.ReduceOp.MAX, group=group)
+                overflow = overflow[0] != 0
+            bufs, totals = assemble_frames(out, lens, frames=f, n_seg=n_seg,
+                                           cap=cap, lens_all=lens_all,
+                                           first=first)
+            if self.mesh is not None:
+                dist.all_reduce(bufs, group=group)
+            max_len = lens_all.view(f, sp)[:, :n_seg].max()
+            return bufs, totals, max_len, overflow
 
     def _encode_qc_local(self, stacked) -> tuple[torch.Tensor, int]:
         """Per-scan (f, H, W) uint8 stacks → (this rank's contiguous run of
@@ -1139,34 +1143,42 @@ class JpegEncoderSession:
             return max(4096, 1 << (b - 1).bit_length())
         return -(-b // 65536) * 65536
 
-    def _run_enc_ladder_batch(self, launch, F: int) -> list[bytes]:
+    def _run_enc_ladder_batch(self, launch,
+                              F: int) -> tuple[list[bytes], int]:
         """``launch(msb)`` → (bufs (F, CAP), totals (F,), max_len,
         overflow) on the device. Walks the budget ladder until a launch
         does not overflow; with a known body cap the capped bodies come
-        back in the same fetch as the scalars."""
+        back in the same fetch as the scalars. Returns the F bodies and
+        the launches taken. Each copy to the host is an ``encode.fetch``
+        span (``bytes``, ``rung``: the launch's place on the ladder,
+        ``overflow``)."""
         cap = self._body_cap
         bodies = None
-        for msb in self._enc_budget_ladder():
+        for rung, msb in enumerate(self._enc_budget_ladder()):
             bufs, totals, max_len, overflow = launch(msb)
-            meta = torch.cat([totals.to(torch.int64),
-                              max_len.to(torch.int64).view(1),
-                              overflow.to(torch.int64).view(1)]).cpu()
-            totals_np = meta[:F].numpy()
-            max_i, ovf = int(meta[F]), bool(meta[F + 1])
+            with trace.span("encode.fetch", rung=rung, bytes=8 * (F + 2)):
+                meta = torch.cat([totals.to(torch.int64),
+                                  max_len.to(torch.int64).view(1),
+                                  overflow.to(torch.int64).view(1)]).cpu()
+                totals_np = meta[:F].numpy()
+                max_i, ovf = int(meta[F]), bool(meta[F + 1])
+                trace.attrs(overflow=int(ovf))
             if ovf:
                 continue
             top = int(totals_np.max())
-            if cap is not None and top <= cap:
-                host = bufs[:, :cap].cpu().numpy()
-            else:
-                host = bufs[:, :top].cpu().numpy()
+            capped = cap is not None and top <= cap
+            width = cap if capped else top
+            with trace.span("encode.fetch", rung=rung, bytes=F * width,
+                            overflow=0):
+                host = bufs[:, :width].cpu().numpy()
+            if not capped:
                 self._body_cap = self._body_bucket(top)
             bodies = [host[f, :totals_np[f]].tobytes() for f in range(F)]
             break
         else:
             raise ValueError("device entropy encode overflow")
         self._record_seg_bytes(max_i)
-        return bodies
+        return bodies, rung + 1
 
     @functools.cached_property
     def _header_bytes(self) -> bytes:
@@ -1176,16 +1188,27 @@ class JpegEncoderSession:
         return w.get_buffer()
 
     def _encode_stacked(self, stacked) -> list[bytes]:
+        """Per-scan (f, H, W) uint8 stacks on the device → f JPEG streams:
+        an ``encode.dispatch`` span (``frames``, ``bytes_out``, ``rungs``)
+        over an ``encode.launch`` (stage ``datapath``: the block gather, K3
+        and the segment pad), the ladder's launches and fetches, and the
+        ``encode.wire`` join."""
         f = stacked[0].shape[0]
-        if self.mesh is None:
-            qc_seg = self._pad_segments(self._encode_qc_batch(stacked), f)
-            first = 0
-        else:
-            qc_seg, first = self._encode_qc_local(stacked)
-        bodies = self._run_enc_ladder_batch(
-            lambda msb: self._pack_graph(qc_seg, f, msb, first), f)
-        hdr = self._header_bytes
-        return [b"".join((hdr, body, _EOI)) for body in bodies]
+        with trace.span("encode.dispatch", frames=f):
+            with trace.span("encode.launch", stage="datapath"):
+                if self.mesh is None:
+                    qc_seg = self._pad_segments(
+                        self._encode_qc_batch(stacked), f)
+                    first = 0
+                else:
+                    qc_seg, first = self._encode_qc_local(stacked)
+            bodies, rungs = self._run_enc_ladder_batch(
+                lambda msb: self._pack_graph(qc_seg, f, msb, first), f)
+            with trace.span("encode.wire"):
+                hdr = self._header_bytes
+                out = [b"".join((hdr, body, _EOI)) for body in bodies]
+            trace.attrs(bytes_out=sum(map(len, out)), rungs=rungs)
+        return out
 
     def encode_device(self, frame) -> bytes:
         """One Frame (or bare planes) → JPEG bytes with the block numerics
@@ -1379,15 +1402,17 @@ class JpegTranscodeSession:
         """Each plane stack zeroed outside the frame's actual size and
         cut or zero-padded to the encoder's plane size, so the output
         bytes are those of a host-roundtrip re-encode (load_planes pads
-        with zeros)."""
+        with zeros). An ``encode.launch`` span of stage ``datapath``, before
+        the encoder's ``encode.dispatch``."""
         cleaned = []
-        for p, (ah, aw), (eh, ew) in zip(stacks, self._pad_masks,
-                                         self._enc_dims):
-            if not ah == eh == p.shape[1] or not aw == ew == p.shape[2]:
-                fitted = p.new_zeros((p.shape[0], eh, ew))
-                fitted[:, :ah, :aw] = p[:, :ah, :aw]
-                p = fitted
-            cleaned.append(p)
+        with trace.span("encode.launch", stage="datapath"):
+            for p, (ah, aw), (eh, ew) in zip(stacks, self._pad_masks,
+                                             self._enc_dims):
+                if not ah == eh == p.shape[1] or not aw == ew == p.shape[2]:
+                    fitted = p.new_zeros((p.shape[0], eh, ew))
+                    fitted[:, :ah, :aw] = p[:, :ah, :aw]
+                    p = fitted
+                cleaned.append(p)
         return cleaned
 
     def transcode(self, entropy_data: bytes) -> bytes:
