@@ -1737,7 +1737,7 @@ def multi_device_path(sources, frames, streams, counted, smi,
 
     from video_coding_tpu_torch.entropy import gather_pack
     from video_coding_tpu_torch.entropy.decode_tables import pack_segments
-    from video_coding_tpu_torch.entropy.scan import (_destuff_parts,
+    from video_coding_tpu_torch.entropy.scan import (destuff_dispatch,
                                                      destuff_segments)
     from video_coding_tpu_torch.model.header import Parameters
     from video_coding_tpu_torch.ops import datapath
@@ -1847,8 +1847,8 @@ def multi_device_path(sources, frames, streams, counted, smi,
                                "sharding=None")
 
         # the sharded datapaths on the 16 frames' blocks
-        parts, lens_parts = _destuff_parts(payloads, dec.n_segments)
-        coefs, _inv = dec._decode_coefs_pool(parts, lens_parts)
+        coefs, _inv = dec._decode_coefs_pool(
+            destuff_dispatch(payloads, dec.n_segments))
         coefs = coefs.view(-1, 64)
         N = coefs.shape[0]
         qdec = dec._quant_seg.repeat(N // dec.blocks_per_segment, 1)
@@ -3218,7 +3218,7 @@ def run_phases(m_made) -> int:
     from video_coding_tpu_torch.entropy import scan as hscan
     from video_coding_tpu_torch.entropy import huffman_encode as k4
     from video_coding_tpu_torch.entropy import pack_stuff as k8
-    from video_coding_tpu_torch.entropy.scan import _destuff_parts
+    from video_coding_tpu_torch.entropy.scan import destuff_dispatch
     from video_coding_tpu_torch.model.header import Header, Parameters
     from video_coding_tpu_torch.ops import datapath
     from video_coding_tpu_torch.ops import lookup as k9
@@ -3296,13 +3296,14 @@ def run_phases(m_made) -> int:
     dev = dec.device
     B = dec.blocks_per_segment
     C = len(dec.components)
-    parts, lens_parts = _destuff_parts(payloads, dec.n_segments)
-    flat = np.concatenate(parts)
+    d = destuff_dispatch(payloads, dec.n_segments)
+    lane_bytes = int(d.lens.sum())
     starts, lens, segb, inv_perm = dec._flat_lane_inputs(
-        np.concatenate(lens_parts),
-        np.tile(dec._expected_seg_blocks(dec.n_segments), FRAMES))
+        d.lens.reshape(-1),
+        np.tile(dec._expected_seg_blocks(dec.n_segments), FRAMES),
+        d.starts.reshape(-1))
     up = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-          for a in (flat, starts, lens, segb)]
+          for a in (d.flat, starts, lens, segb)]
     st = dec.state
     k1_args = (*up, dec._comp_sched, st.lo, st.hi, st.offset, st.values)
     k1_kw = dict(blocks_per_segment=B, n_components=C)
@@ -3323,7 +3324,7 @@ def run_phases(m_made) -> int:
     err = {"K1": compare("K1", coefs, coefs_p)}
     S = coefs.shape[0]
     n_sym = symbol_count(coefs.view(-1, 64))
-    k1_bytes = (flat.size + 3 * 4 * S + st.values.numel() * 4
+    k1_bytes = (lane_bytes + 3 * 4 * S + st.values.numel() * 4
                 + 3 * st.lo.numel() * 4 + coefs.numel() * 4)
     rows.append(("K1", "video_coding_tpu_torch/csrc/huffman_decode.cu",
                  "video_coding_tpu/entropy/pallas_decode.py:838",
@@ -3466,7 +3467,7 @@ def run_phases(m_made) -> int:
     # torch.profiler (device busy = sum of CUDA kernel and copy spans; one
     # stream, so they do not overlap)
     t0 = time.perf_counter()
-    _destuff_parts(payloads, dec.n_segments)
+    destuff_dispatch(payloads, dec.n_segments)
     destuff_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3693,7 +3694,7 @@ def run_phases(m_made) -> int:
             f"{', '.join(f'{x:.2f}' for x in w)}; {n} frames a window) "
             f"on {smi}")
     t0 = time.perf_counter()
-    _destuff_parts(pay_b, sessions["B"].n_segments)
+    destuff_dispatch(pay_b, sessions["B"].n_segments)
     breakdown("decode_device_batch (path B)",
               lambda: sessions["B"].decode_device_batch(pay_b),
               f"; host destuff of the {FRAMES} frames alone "

@@ -12,7 +12,7 @@ import torch
 from video_coding_tpu_torch.common.bitstream import BitReader
 from video_coding_tpu_torch.entropy import (huffman_decode, huffman_encode,
                                             pack_stuff)
-from video_coding_tpu_torch.entropy.scan import _destuff_parts
+from video_coding_tpu_torch.entropy.scan import destuff_dispatch
 from video_coding_tpu_torch.model.header import Header, Parameters
 from video_coding_tpu_torch.ops import datapath, lookup
 from video_coding_tpu_torch.runtime import engine
@@ -48,12 +48,13 @@ def test_kernels_match_plain_versions(gpu):
     t = JpegTranscodeSession(header, quality=75, restart_interval=1,
                              device=gpu)
     dec, enc = t.decoder, t.encoder
-    parts, lens_parts = _destuff_parts(payloads, dec.n_segments)
-    flat = np.concatenate(parts)
+    d = destuff_dispatch(payloads, dec.n_segments)
     starts, lens, segb, _inv = dec._flat_lane_inputs(
-        np.concatenate(lens_parts),
-        np.tile(dec._expected_seg_blocks(dec.n_segments), len(payloads)))
-    args = [torch.from_numpy(a).to(gpu) for a in (flat, starts, lens, segb)]
+        d.lens.reshape(-1),
+        np.tile(dec._expected_seg_blocks(dec.n_segments), len(payloads)),
+        d.starts.reshape(-1))
+    args = [torch.from_numpy(a).to(gpu)
+            for a in (d.flat, starts, lens, segb)]
     st = dec.state
     kw = dict(blocks_per_segment=dec.blocks_per_segment,
               n_components=len(dec.components))
@@ -1127,14 +1128,13 @@ def _long_rows(gpu, S, L, seed, mcu_rows=1):
     stream = enc.encode_device_batch(synth_frames(1, seed, 3840, h))[0]
     bits = BitReader(stream)
     dec = JpegDecoderSession(Header.decode(bits), device=gpu)
-    parts, lens = _destuff_parts([stream[bits.bit_pos >> 3:]], S)
+    d = destuff_dispatch([stream[bits.bit_pos >> 3:]], S)
     rng = np.random.default_rng(seed)
     rows = np.zeros((S, L), np.uint8)
-    starts = np.concatenate([[0], np.cumsum(lens[0])])
     for s in range(S):
-        n = int(lens[0][s])
+        n, st = int(d.lens[0, s]), int(d.starts[0, s])
         assert n + 4 <= L
-        rows[s, :n] = parts[0][starts[s]:starts[s] + n]
+        rows[s, :n] = d.flat[st:st + n]
         if s % 2:
             rows[s, n + 4:] = rng.integers(0, 256, L - n - 4)
     return rows, dec

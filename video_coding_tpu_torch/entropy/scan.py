@@ -20,7 +20,11 @@ caller's ``use_native``:
 
 from __future__ import annotations
 
+import itertools
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 
@@ -66,7 +70,8 @@ def _destuff_native(lib, data: bytes, slack: int):
     return out, seg_ends[:n], seg_marks[:n - 1]
 
 
-def destuff_flat(data: bytes, use_native: bool | None = None
+def destuff_flat(data: bytes, use_native: bool | None = None,
+                 out: tuple[np.ndarray, np.ndarray] | None = None
                  ) -> tuple[np.ndarray, np.ndarray]:
     """Raw entropy-coded bytes → (flat destuffed uint8 buffer, per-segment
     byte lengths int64): the zero-copy input of the device decode routes.
@@ -78,11 +83,44 @@ def destuff_flat(data: bytes, use_native: bool | None = None
     overlap — the byte a stuffing or RSTn pair consumes is never 0xFF — so
     each 0xFF is classified on its own, without a sequential walk. While
     the span recorder is on, the call is a ``decode.destuff`` span
-    (``bytes_in``, ``segments``)."""
+    (``bytes_in``, ``segments``).
+
+    With ``out=(flat, ends)`` the engine allocates nothing: the destuffed
+    bytes go to the start of ``flat`` (at least ``len(data)`` bytes, since
+    destuffing never lengthens a stream), the rest of ``flat`` is zeroed,
+    and each segment's end offset in ``flat`` goes to ``ends``. It returns
+    views of the two: (the destuffed bytes, the segment ends). A stream
+    with more segments than ``ends`` holds raises ValueError."""
     with trace.span("decode.destuff", bytes_in=len(data)):
-        flat, lens = _destuff_flat(data, use_native)
+        if out is None:
+            flat, lens = _destuff_flat(data, use_native)
+        else:
+            flat, lens = _destuff_into(data, *out, use_native)
         trace.attrs(segments=len(lens))
         return flat, lens
+
+
+def _destuff_into(data: bytes, flat: np.ndarray, ends: np.ndarray,
+                  use_native: bool | None):
+    """``destuff_flat`` into the caller's ``flat`` and ``ends``."""
+    if len(flat) < len(data):
+        raise ValueError(f"an out buffer of {len(flat)} bytes for "
+                         f"{len(data)} bytes of entropy data")
+    lib = _engine(use_native)
+    if lib is not None:
+        n = lib.vct_destuff_segments(np.frombuffer(data, dtype=np.uint8),
+                                     len(data), flat, ends, len(ends))
+    else:
+        got, lens = _destuff_flat(data, use_native)
+        n = len(lens) if len(lens) <= len(ends) else -1
+        if n > 0:
+            flat[:len(got)] = got
+            np.cumsum(lens, out=ends[:n])
+    if n <= 0:
+        raise ValueError(f"more than {len(ends)} restart segments")
+    end = int(ends[n - 1])
+    flat[end:] = 0
+    return flat[:end], ends[:n]
 
 
 def _destuff_flat(data: bytes, use_native: bool | None):
@@ -149,18 +187,23 @@ def rst_marker_indices(data: bytes) -> list[int]:
 
 def pack_lanes_sorted(flat: np.ndarray, lens64: np.ndarray,
                       order: np.ndarray, L: int,
-                      use_native: bool | None = None) -> np.ndarray:
+                      use_native: bool | None = None,
+                      starts: np.ndarray | None = None) -> np.ndarray:
     """(S, L) zero-padded uint8 lane matrix from the flat destuffed
     buffer, rows permuted by ``order`` (the load-balancing length sort):
-    the engine's strided copy or a numpy gather. ``L`` must be >=
-    lens64.max() + 4: the guard bytes are what a decoder reads past a
-    segment's end (a shorter ``L`` than a segment raises)."""
+    the engine's strided copy or a numpy gather. Segment s lies at
+    ``starts[s]`` in ``flat`` (None: the segments end to end from 0).
+    ``L`` must be >= lens64.max() + 4: the guard bytes are what a decoder
+    reads past a segment's end (a shorter ``L`` than a segment raises)."""
     S = len(lens64)
     if S and L < int(lens64.max()):
         raise ValueError(f"lane length {L} is shorter than a segment "
                          f"({int(lens64.max())} bytes)")
-    starts = np.zeros(S, np.int64)
-    np.cumsum(lens64[:-1], out=starts[1:])
+    if starts is None:
+        starts = np.zeros(S, np.int64)
+        np.cumsum(lens64[:-1], out=starts[1:])
+    else:
+        starts = np.ascontiguousarray(starts, dtype=np.int64)
     lib = _engine(use_native)
     if lib is not None:
         out = np.zeros((S, L), np.uint8)
@@ -606,30 +649,120 @@ def _chunked(it, batch: int):
         yield buf
 
 
-def _destuff_parts(entropy_list: list, n_seg: int):
-    """Destuff many frames' entropy bytes on worker threads with the
-    engine (ctypes drops the GIL for each call, so the passes run in
-    parallel) and validate each frame's restart segment count. Returns
-    (parts, lens_parts) — per-frame flat buffers and per-segment byte
-    lengths. The pool's wall time is a ``decode.destuff_pool`` span, the
-    parent of each frame's ``decode.destuff`` on its thread."""
-    with trace.span("decode.destuff_pool", frames=len(entropy_list)):
-        if len(entropy_list) > 1:
-            from concurrent.futures import ThreadPoolExecutor
+def flat_size(n: int) -> int:
+    """Bytes of a dispatch's flat buffer that holds ``n`` bytes of lanes:
+    >= 8 zero guard bytes after them, to a multiple of 16 (K7 copies whole
+    16-byte rows)."""
+    return -(-(n + 8) // 16) * 16
 
-            with ThreadPoolExecutor(
-                    max_workers=min(8, len(entropy_list))) as ex:
-                destuffed = list(ex.map(trace.carry(destuff_flat),
-                                        entropy_list))
-        else:
-            destuffed = [destuff_flat(entropy_list[0])]
-    parts, lens_parts = [], []
-    for flat, lens64 in destuffed:
-        if len(lens64) != n_seg:
-            raise DecodeError("restart segment count mismatch")
-        parts.append(flat)
-        lens_parts.append(lens64)
-    return parts, lens_parts
+
+_pool: ThreadPoolExecutor | None = None
+_pool_pid = 0
+_pool_lock = threading.Lock()
+
+
+def pool_map(fn, items: list) -> list:
+    """``fn`` over ``items`` on the host engine's standing pool (in the
+    calling thread for one item), the caller's open span carried to the
+    pool's threads. The pool, min(8, cores) threads made at first use
+    (anew in a forked child), is shared by every dispatch in flight, so
+    two never run more engine threads than that. The engine's ctypes
+    calls drop the interpreter lock, so the items run in parallel."""
+    global _pool, _pool_pid
+    if len(items) == 1:
+        return [fn(items[0])]
+    with _pool_lock:
+        if _pool is None or _pool_pid != os.getpid():
+            _pool = ThreadPoolExecutor(max_workers=min(8, os.cpu_count()
+                                                       or 1))
+            _pool_pid = os.getpid()
+        pool = _pool
+    return list(pool.map(trace.carry(fn), items))
+
+
+class Destuffed(NamedTuple):
+    """A dispatch's destuffed frames in one flat uint8 buffer
+    (``destuff_dispatch``): frame i from ``bases[i]``, its segment s at
+    ``starts[i, s]`` for ``lens[i, s]`` bytes ((F, n_seg) int64). The
+    bytes between frames and the >= 8 after the last are zero; ``flat``
+    is a multiple of 16 bytes long."""
+    flat: np.ndarray
+    bases: np.ndarray
+    starts: np.ndarray
+    lens: np.ndarray
+
+
+class _Room(threading.local):
+    """A thread's dispatch buffers: the flat bytes and the int64 segment
+    arrays. They grow when a dispatch needs more room and are otherwise
+    reused."""
+    flat = np.empty(0, np.uint8)
+    segs = np.empty(0, np.int64)
+
+
+_room = _Room()
+
+
+def _grow(name: str, need: int) -> bool:
+    """Give the thread's ``name`` buffer room for ``need`` items (a
+    quarter more than it had, at least); whether it had to grow."""
+    have = len(getattr(_room, name))
+    if have >= need:
+        return False
+    setattr(_room, name, np.empty(max(need, have + have // 4),
+                                  getattr(_room, name).dtype))
+    return True
+
+
+def _destuff_slot(job) -> int:
+    """One frame of ``destuff_dispatch`` into its slot: its segment count,
+    or -1 past the slot's room. ``destuff_flat`` is looked up at call
+    time, so a wrapper around it sees every frame."""
+    data, flat, ends = job
+    try:
+        return len(destuff_flat(data, out=(flat, ends))[1])
+    except ValueError:
+        return -1
+
+
+def destuff_dispatch(entropy_list: list, n_seg: int) -> Destuffed:
+    """Destuff a dispatch's frames into one flat buffer that the calling
+    thread reuses, and check each frame's restart segment count against
+    ``n_seg`` (DecodeError). Frame i's slot starts at the sum of the
+    input lengths before it; destuffing never lengthens a stream, so the
+    frames destuff in parallel on the standing pool (``pool_map``), each
+    by ``destuff_flat(out=...)`` straight into its slot, with nothing
+    allocated a frame and, once the buffers are large enough, nothing a
+    dispatch.
+
+    The result is views of the thread's buffers, overwritten by its next
+    dispatch: upload or consume it before then, and keep nothing that
+    aliases it. The call is a ``decode.destuff_pool`` span (``frames``;
+    ``buffer_bytes``, the buffer's capacity; ``grown``, 1 when this
+    dispatch had to grow a buffer), the parent of each frame's
+    ``decode.destuff`` on its thread."""
+    F = len(entropy_list)
+    offs = [0, *itertools.accumulate(map(len, entropy_list))]
+    with trace.span("decode.destuff_pool", frames=F):
+        grown = _grow("flat", flat_size(offs[-1]))
+        grown |= _grow("segs", F * (3 * n_seg + 1))
+        flat, segs = _room.flat, _room.segs
+        trace.attrs(buffer_bytes=len(flat), grown=int(grown))
+        a, b = F * (n_seg + 1), F * (2 * n_seg + 1)
+        ends = segs[:a].reshape(F, n_seg + 1)
+        lens = segs[a:b].reshape(F, n_seg)
+        starts = segs[b:b + F * n_seg].reshape(F, n_seg)
+        ends[:, 0] = 0
+        counts = pool_map(_destuff_slot, [
+            (data, flat[o:o + len(data)], ends[i, 1:])
+            for i, (data, o) in enumerate(zip(entropy_list, offs))])
+    if any(n != n_seg for n in counts):
+        raise DecodeError("restart segment count mismatch")
+    end = offs[-2] + int(ends[-1, -1])
+    flat[end:flat_size(end)] = 0
+    np.subtract(ends[:, 1:], ends[:, :-1], out=lens)
+    np.add(ends[:, :-1], np.asarray(offs[:-1])[:, None], out=starts)
+    return Destuffed(flat[:flat_size(end)], starts[:, 0], starts, lens)
 
 
 def _pipelined_map(fn, items, depth: int):

@@ -51,8 +51,9 @@ from ..entropy.decode_tables import (auto_strategy, expand_luts,
 from ..entropy.huffman_encode import (device_encoder_tables, encode_segments,
                                       m_out_for)
 from ..entropy import scan as entropy_scan
-from ..entropy.scan import (_chunked, _destuff_parts, _pipelined_map,
-                            destuff_flat, index_scan, pack_lanes_sorted)
+from ..entropy.scan import (_chunked, _pipelined_map, destuff_dispatch,
+                            destuff_flat, flat_size, index_scan,
+                            pack_lanes_sorted, pool_map)
 from ..entropy.symbols import prev_same_component
 from ..entropy.tables import pack_decoder_tables, pack_encoder_tables
 from ..model import marker_codes
@@ -355,38 +356,36 @@ class JpegDecoderSession:
 
     @classmethod
     def _padded_lane_inputs(cls, flat: np.ndarray, lens64: np.ndarray,
-                            seg_blocks: np.ndarray):
+                            seg_blocks: np.ndarray,
+                            starts64: np.ndarray | None = None):
         """Host prep for the padded-lane decode: segments packed into a
-        (S, L) zero-padded matrix in length-sorted order. Returns
+        (S, L) zero-padded matrix in length-sorted order, segment s from
+        ``starts64[s]`` in ``flat`` (None: end to end from 0). Returns
         (lanebuf (S, L), lens, seg_blocks, inv_perm, L) with the per-lane
         arrays in sorted order."""
         order, inv_perm = cls._lane_order(lens64)
         L = _lane_bucket(int(lens64.max()), 5)
-        lanebuf = pack_lanes_sorted(flat, lens64, order, L)
+        lanebuf = pack_lanes_sorted(flat, lens64, order, L, starts=starts64)
         return (lanebuf, lens64.astype(np.int32)[order], seg_blocks[order],
                 inv_perm, L)
 
     @classmethod
-    def _flat_lane_inputs(cls, lens64: np.ndarray, seg_blocks: np.ndarray):
+    def _flat_lane_inputs(cls, lens64: np.ndarray, seg_blocks: np.ndarray,
+                          starts64: np.ndarray | None = None):
         """Host prep for the flat-buffer decode: per-segment offsets into
-        the flat buffer in length-sorted lane order. Returns (starts,
-        lens, seg_blocks, inv_perm) with the per-lane arrays in sorted
-        order."""
-        _check_flat_bytes(int(lens64.sum()))
+        the flat buffer in length-sorted lane order, ``starts64`` (None:
+        the segments end to end from 0, checked under 2 GiB; a caller
+        that passes them checks its buffer). Returns (starts, lens,
+        seg_blocks, inv_perm) with the per-lane arrays in sorted order."""
         lens = lens64.astype(np.int32)
-        starts = np.zeros(len(lens64), np.int32)
-        np.cumsum(lens[:-1], out=starts[1:])
+        if starts64 is None:
+            _check_flat_bytes(int(lens64.sum()))
+            starts = np.zeros(len(lens64), np.int32)
+            np.cumsum(lens[:-1], out=starts[1:])
+        else:
+            starts = starts64.astype(np.int32)
         order, inv_perm = cls._lane_order(lens64)
         return starts[order], lens[order], seg_blocks[order], inv_perm
-
-    @staticmethod
-    def _join_flat(parts: list) -> np.ndarray:
-        """The frames' flat buffers as one, zero-padded to a multiple of
-        16 bytes with >= 8 spare (K7 copies whole 16-byte rows)."""
-        total = sum(len(p) for p in parts)
-        flat = np.zeros(-(-(total + 8) // 16) * 16, np.uint8)
-        np.concatenate(parts, out=flat[:total])
-        return flat
 
     # -- Huffman decode strategies ------------------------------------------
     def _decode_segments(self, segbytes: torch.Tensor,
@@ -434,33 +433,38 @@ class JpegDecoderSession:
         return torch.where(cols < lens[:, None], flat[idx],
                            flat.new_zeros(())).contiguous()
 
-    def _decode_coefs_pool(self, parts: list, lens_parts: list,
-                           run: tuple[int, int] | None = None):
-        """Destuffed frames (flat buffers and per-segment lengths) →
-        ((S', B, 64) coefficients in lane order, inv_perm (S,) int64) on
-        the device, S = F·n_segments. ``run`` = (n, r) pads the
-        length-sorted lanes with zero-length lanes (which decode nothing
-        and sort last) to a multiple of n and decodes only the r-th of n
-        contiguous runs of them, uploading that run's segment bytes only;
-        inv_perm then indexes the lanes of all n runs in order. None
-        decodes every lane."""
-        F = len(parts)
+    def _decode_coefs_pool(self, d, run: tuple[int, int] | None = None):
+        """A destuffed dispatch (``scan.Destuffed``) → ((S', B, 64)
+        coefficients in lane order, inv_perm (S,) int64) on the device, S
+        = F·n_segments. ``run`` = (n, r) pads the length-sorted lanes with
+        zero-length lanes (which decode nothing and sort last) to a
+        multiple of n and decodes only the r-th of n contiguous runs of
+        them, uploading that run's segment bytes only; inv_perm then
+        indexes the lanes of all n runs in order. None decodes every
+        lane."""
+        F = len(d.lens)
         dev = self.device
         B = self.blocks_per_segment
         with trace.span("decode.lane_prep"):
-            lens64 = np.concatenate(lens_parts)
+            lens64 = d.lens.reshape(-1)
+            starts64 = d.starts.reshape(-1)
             seg_blocks = np.tile(self._expected_seg_blocks(self.n_segments),
                                  F)
             padded = run is None and self._use_padded_lanes(batched=F > 1)
             if padded:
                 lanebuf, lens, segb, inv_perm, L = self._padded_lane_inputs(
-                    np.concatenate(parts), lens64, seg_blocks)
+                    d.flat, lens64, seg_blocks, starts64)
             else:
                 n, r = run or (1, 0)
                 S = len(lens64)
                 pad = -S % n
+                end = int(starts64[-1] + lens64[-1])
+                _check_flat_bytes(end)
+                # the padding lanes start where the last frame ends
                 starts, lens, segb, inv_perm = self._flat_lane_inputs(
-                    np.pad(lens64, (0, pad)), np.pad(seg_blocks, (0, pad)))
+                    np.pad(lens64, (0, pad)), np.pad(seg_blocks, (0, pad)),
+                    np.pad(starts64, (0, pad), constant_values=end))
+                flat = d.flat
                 if n > 1:
                     step = len(lens) // n
                     starts, lens, segb = (a[r * step:(r + 1) * step]
@@ -471,9 +475,10 @@ class JpegDecoderSession:
                     packed[by] = np.cumsum(lens[by]) - lens[by]
                     idx = (np.repeat(starts[by] - packed[by], lens[by])
                            + np.arange(int(lens.sum())))
-                    parts, starts = [np.concatenate(parts)[idx]], packed
+                    flat = np.zeros(flat_size(len(idx)), np.uint8)
+                    np.take(d.flat, idx, out=flat[:len(idx)])
+                    starts = packed
                 L = _lane_bucket(int(lens.max()), 6)
-                flat = self._join_flat(parts)
             trace.attrs(lanes=len(lens), lane_len=L,
                         lane_bytes=int(lens.sum(dtype=np.int64)))
         if padded:
@@ -494,11 +499,12 @@ class JpegDecoderSession:
                     self._gather_lanes(flat, starts, lens, L), segb)
         return coefs, _upload(inv_perm[:S], dev).to(torch.int64)
 
-    def _decode_device_batch_indexed(self, flats: list):
-        """Indexed decode of restart-free streams: every frame's one
-        segment is index-scanned on the host (a thread pool over the
-        frames) and all frames' virtual segments pool into one K1 lane
-        set, each lane starting at its recorded bit offset and DC
+    def _decode_device_batch_indexed(self, d):
+        """Indexed decode of a destuffed dispatch of restart-free streams
+        (``scan.Destuffed``): every frame's one segment is index-scanned
+        on the host (the standing pool over the frames, each on its view
+        of the flat buffer) and all frames' virtual segments pool into one
+        K1 lane set, each lane starting at its recorded bit offset and DC
         predictors. Returns stacked planes — or None when the index scan
         meets a malformed symbol: the golden model conceals such input
         where the scan raises, so the caller decodes that batch as one
@@ -513,13 +519,10 @@ class JpegDecoderSession:
                 except ValueError:
                     return None
 
-        if len(flats) > 1:
-            from concurrent.futures import ThreadPoolExecutor
-
-            with ThreadPoolExecutor(max_workers=min(8, len(flats))) as ex:
-                idxs = list(ex.map(trace.carry(scan), flats))
-        else:
-            idxs = [scan(flats[0])]
+        bases = d.bases.tolist()
+        flats = [d.flat[b:b + n]
+                 for b, n in zip(bases, d.lens[:, 0].tolist())]
+        idxs = pool_map(scan, flats)
         if any(i is None for i in idxs):
             return None
         with trace.span("decode.lane_prep"):
@@ -527,8 +530,7 @@ class JpegDecoderSession:
             C = len(self.components)
             R = (self.n_blocks + stride - 1) // stride
             starts_l, lens_l, bp0_l, dc0_l = [], [], [], []
-            base = 0
-            for fl, (bo, dp) in zip(flats, idxs):
+            for base, fl, (bo, dp) in zip(bases, flats, idxs):
                 s64 = bo >> 3
                 ends = np.empty(R, np.int64)
                 # a lane's last byte may hold the next lane's first bits:
@@ -539,8 +541,7 @@ class JpegDecoderSession:
                 lens_l.append(ends - s64)
                 bp0_l.append((bo - 8 * s64).astype(np.int32))
                 dc0_l.append(dp[:, :C].astype(np.int32))
-                base += len(fl)
-            _check_flat_bytes(base)
+            _check_flat_bytes(bases[-1] + len(flats[-1]))
             lens64 = np.concatenate(lens_l)
             seg_blocks = np.full(R, stride, dtype=np.int32)
             if self.n_blocks % stride:
@@ -550,12 +551,11 @@ class JpegDecoderSession:
                      lens64.astype(np.int32), np.tile(seg_blocks, F),
                      np.concatenate(bp0_l), np.concatenate(dc0_l)]
             lanes = [a[order] for a in lanes]
-            flat = self._join_flat(flats)
             # K1 reads the lanes from the flat buffer: no lane matrix
             trace.attrs(lanes=len(lens64), lane_bytes=int(lens64.sum()))
         dev = self.device
         starts, lens, segb, bp0, dc0 = (_upload(a, dev) for a in lanes)
-        flat = _upload(flat, dev)
+        flat = _upload(d.flat, dev)
         with trace.span("decode.launch", stage="huffman",
                         route=self._flat_route()):
             coefs = self._decode_flat_lanes(flat, starts, lens, segb, stride,
@@ -607,13 +607,12 @@ class JpegDecoderSession:
                         bytes_in=sum(map(len, entropy_list))):
             if self.mesh is not None:
                 return self._decode_mesh(entropy_list, frame_sharded)
-            parts, lens_parts = _destuff_parts(entropy_list,
-                                               self.n_segments)
+            d = destuff_dispatch(entropy_list, self.n_segments)
             if self._indexable():
-                out = self._decode_device_batch_indexed(parts)
+                out = self._decode_device_batch_indexed(d)
                 if out is not None:
                     return out
-            coefs, inv_perm = self._decode_coefs_pool(parts, lens_parts)
+            coefs, inv_perm = self._decode_coefs_pool(d)
             return self._decode_tail_pool(coefs.view(-1, 64), inv_perm,
                                           len(entropy_list))
 
@@ -628,7 +627,7 @@ class JpegDecoderSession:
         mesh, B = self.mesh, self.blocks_per_segment
         n, r, F = mesh.size(), mesh_index(mesh), len(entropy_list)
         coefs, ip = self._decode_coefs_pool(
-            *_destuff_parts(entropy_list, self.n_segments), run=(n, r))
+            destuff_dispatch(entropy_list, self.n_segments), run=(n, r))
         with trace.span("decode.launch", stage="tail"):
             pixels = datapath.decode_datapath(coefs.view(-1, 64),
                                               self._quant_seg)
