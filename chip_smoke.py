@@ -1130,7 +1130,7 @@ def host_engine_checks(sources, src_enc, smi, build_s: float) -> None:
     from video_coding_tpu_torch.entropy import native
     from video_coding_tpu_torch.entropy import scan as hscan
     from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
-                                                       _lane_bucket)
+                                                       _lane_plan)
 
     t_phase = time.perf_counter()
     log(f"host engine: {native.library_path().name}, ABI "
@@ -1187,10 +1187,12 @@ def host_engine_checks(sources, src_enc, smi, build_s: float) -> None:
 
     def lanes(i, use_native=None):
         flat, lens = flats[i]
-        order = np.argsort(-lens, kind="stable")
-        return hscan.pack_lanes_sorted(flat, lens, order,
-                                       _lane_bucket(int(lens.max()), 5),
-                                       use_native=use_native)
+        starts = np.zeros_like(lens)
+        np.cumsum(lens[:-1], out=starts[1:])
+        plan = _lane_plan(starts, lens, dec._expected_seg_blocks(len(lens)),
+                          matrix=True)
+        return hscan.pack_lanes_sorted(flat, lens, plan.order, plan.L,
+                                       starts=starts, use_native=use_native)
 
     tiers("pack_lanes_sorted", lanes, lambda i: lanes(i, False),
           np.array_equal, F)
@@ -3298,12 +3300,9 @@ def run_phases(m_made) -> int:
     C = len(dec.components)
     d = destuff_dispatch(payloads, dec.n_segments)
     lane_bytes = int(d.lens.sum())
-    starts, lens, segb, inv_perm = dec._flat_lane_inputs(
-        d.lens.reshape(-1),
-        np.tile(dec._expected_seg_blocks(dec.n_segments), FRAMES),
-        d.starts.reshape(-1))
+    plan = dec._segment_plan(d)
     up = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-          for a in (d.flat, starts, lens, segb)]
+          for a in (d.flat, plan.starts, plan.lens, plan.blocks)]
     st = dec.state
     k1_args = (*up, dec._comp_sched, st.lo, st.hi, st.offset, st.values)
     k1_kw = dict(blocks_per_segment=B, n_components=C)
@@ -3362,7 +3361,7 @@ def run_phases(m_made) -> int:
                  N2 * 64 * 4 + qseg.numel() * 4 + N2 * 64, 1200.0 * N2))
     adversarial_decode_datapath_checks(N2, dev)
 
-    stacks = dec._decode_tail_pool(pool, torch.from_numpy(inv_perm).to(
+    stacks = dec._decode_tail_pool(pool, torch.from_numpy(plan.inv_perm).to(
         dev).to(torch.int64), FRAMES)
     px = enc._gather_blocks(trans._clean_planes(stacks))
     qe = enc.state.quant

@@ -49,12 +49,9 @@ def test_kernels_match_plain_versions(gpu):
                              device=gpu)
     dec, enc = t.decoder, t.encoder
     d = destuff_dispatch(payloads, dec.n_segments)
-    starts, lens, segb, _inv = dec._flat_lane_inputs(
-        d.lens.reshape(-1),
-        np.tile(dec._expected_seg_blocks(dec.n_segments), len(payloads)),
-        d.starts.reshape(-1))
+    plan = dec._segment_plan(d)
     args = [torch.from_numpy(a).to(gpu)
-            for a in (d.flat, starts, lens, segb)]
+            for a in (d.flat, plan.starts, plan.lens, plan.blocks)]
     st = dec.state
     kw = dict(blocks_per_segment=dec.blocks_per_segment,
               n_components=len(dec.components))

@@ -23,6 +23,7 @@ from video_coding_tpu_torch.common.plane import Plane
 from video_coding_tpu_torch.entropy import huffman_decode
 from video_coding_tpu_torch.model.header import Header
 from video_coding_tpu_torch.runtime import engine as tengine
+from video_coding_tpu_torch.runtime import trace
 from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
                                                    JpegTranscodeSession)
 
@@ -162,6 +163,15 @@ STRATEGY_CALLS = {
     "auto": "decode_segments", "pallas": "decode_segments",
     "pallas_t": "decode_flat", "range": None,   # no wrapper: the plain loop
     "streamed": "decode_segments_streamed"}
+# the wrapper each route on ``decode.launch`` runs (K1 also under pallas_t)
+ROUTE_CALLS = {"flat": "decode_flat", "pallas_t": "decode_flat",
+               "pallas": "decode_segments", "range": None,
+               "streamed": "decode_segments_streamed"}
+
+
+def _huffman_routes(rec):
+    return [s.attrs["route"] for s in rec.spans
+            if s.name == "decode.launch" and s.attrs["stage"] == "huffman"]
 
 
 @pytest.mark.parametrize("batch", [False, True])
@@ -180,13 +190,17 @@ def test_every_strategy_decodes_the_golden_planes(monkeypatch, how, batch):
         dec, payload = _port(stream, device_huffman=how)
     calls = _count_calls(monkeypatch, "decode_flat", "decode_segments",
                          "decode_segments_streamed")
-    if batch:
-        got = dec._to_frame(dec.decode_device_batch([payload, payload])[1])
-    else:
-        got = dec.decode_device(payload)
+    with trace.recording() as rec:
+        if batch:
+            got = dec._to_frame(
+                dec.decode_device_batch([payload, payload])[1])
+        else:
+            got = dec.decode_device(payload)
     _assert_planes(got, _golden(stream))
     assert calls == {name: int(name == STRATEGY_CALLS[how])
                      for name in calls}
+    (route,) = _huffman_routes(rec)
+    assert calls == {name: int(name == ROUTE_CALLS[route]) for name in calls}
 
 
 @pytest.mark.parametrize("ri,hooks", [(1, False), (0, True)])
@@ -205,8 +219,9 @@ def test_dma_gather_mode_takes_the_staged_kernel(monkeypatch, ri, hooks):
         return staged(*a, **k)
 
     monkeypatch.setattr(huffman_decode, "decode_flat_staged", spy)
-    got = dec.decode_device_batch([payload, payload])
-    assert seen == [hooks]
+    with trace.recording() as rec:
+        got = dec.decode_device_batch([payload, payload])
+    assert seen == [hooks] and _huffman_routes(rec) == ["staged"]
     for g in got:
         _assert_planes(dec._to_frame(g), _golden(stream))
 

@@ -14,7 +14,8 @@ from video_coding_tpu.runtime import engine
 from video_coding_tpu_torch.common.bitstream import BitReader
 from video_coding_tpu_torch.entropy import decode_tables, scan
 from video_coding_tpu_torch.model.header import Header
-from video_coding_tpu_torch.runtime.engine import JpegDecoderSession
+from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
+                                                   _lane_plan)
 
 from _torch_fixtures import encode, header_payload, synth_frame
 
@@ -82,8 +83,13 @@ def test_padded_lane_prep_matches_reference(sub, ri):
     segb = jdec._expected_seg_blocks(len(lens64))
     rbuf, _st, rlens, rsegb, rinv, rL, _M = jdec._padded_lane_inputs(
         flat, lens64, segb)
-    lanebuf, lens, segb2, inv, L = dec._padded_lane_inputs(flat, lens64,
-                                                           segb)
+    starts64 = np.zeros_like(lens64)
+    np.cumsum(lens64[:-1], out=starts64[1:])
+    plan = _lane_plan(starts64, lens64, dec._expected_seg_blocks(len(lens64)),
+                      matrix=True)
+    lens, segb2, inv, L = plan.lens, plan.blocks, plan.inv_perm, plan.L
+    lanebuf = scan.pack_lanes_sorted(flat, lens64, plan.order, L,
+                                     starts=starts64)
     assert L == rL and lanebuf.shape == (len(lens64), L)
     np.testing.assert_array_equal(lanebuf.ravel(), rbuf)
     for a, b in ((lens, rlens), (segb2, rsegb), (inv, rinv)):

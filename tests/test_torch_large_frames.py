@@ -250,13 +250,14 @@ def test_a_dispatch_of_2_gib_is_refused_not_wrapped():
     one byte less still runs."""
     segb = np.full(3, 6, np.int32)
     with pytest.raises(ValueError, match="2 GiB"):
-        JpegDecoderSession._flat_lane_inputs(np.full(3, 1 << 30, np.int64),
-                                             segb)
+        engine._lane_plan(np.arange(3, dtype=np.int64) << 30,
+                          np.full(3, 1 << 30, np.int64), segb)
     lens = np.array([(1 << 30) - 1, 1 << 30], np.int64)
-    starts, got, _segb, inv = JpegDecoderSession._flat_lane_inputs(lens,
-                                                                   segb[:2])
-    assert list(starts[inv]) == [0, (1 << 30) - 1] and list(got[inv]) == \
-        list(lens)
+    plan = engine._lane_plan(np.array([0, (1 << 30) - 1], np.int64), lens,
+                             segb[:2])
+    inv = plan.inv_perm
+    assert list(plan.starts[inv]) == [0, (1 << 30) - 1] and \
+        list(plan.lens[inv]) == list(lens)
     engine._check_flat_bytes((1 << 31) - 1)
     with pytest.raises(ValueError, match="2 GiB"):
         engine._check_flat_bytes(1 << 31)

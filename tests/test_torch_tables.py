@@ -16,7 +16,8 @@ from video_coding_tpu_torch.entropy.scan import destuff_flat
 from video_coding_tpu_torch.model.header import Header, Parameters
 from video_coding_tpu_torch.runtime.engine import (JpegDecoderSession,
                                                    JpegEncoderSession,
-                                                   JpegTranscodeSession)
+                                                   JpegTranscodeSession,
+                                                   _lane_plan)
 
 from _torch_fixtures import ENCODERS, encode, header_payload, synth_frame
 
@@ -86,10 +87,14 @@ def test_session_arrays_match_reference(sub, w, h, ri):
     flat, lens64 = destuff_flat(stream[bits.bit_pos >> 3:])
     segb = dec._expected_seg_blocks(len(lens64))
     np.testing.assert_array_equal(segb, jdec._expected_seg_blocks(len(lens64)))
-    mine = dec._flat_lane_inputs(lens64, segb)
+    starts64 = np.zeros_like(lens64)
+    np.cumsum(lens64[:-1], out=starts64[1:])
+    plan = _lane_plan(starts64, lens64, segb)
     ref = jdec._flat_lane_inputs(flat, lens64, segb)
-    for a, b in zip(mine, ref[1:5]):
+    for a, b in zip((plan.starts, plan.lens, plan.blocks, plan.inv_perm),
+                    ref[1:5]):
         np.testing.assert_array_equal(a, b)
+    assert plan.L == ref[5]
 
 
 def _stuffed_streams():

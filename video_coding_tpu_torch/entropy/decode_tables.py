@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .tables import DecoderTables
+from .tables import _STATE_BUDGET, DecoderTables
 
 
 PEEK_BITS = 16
@@ -90,7 +90,6 @@ def range_tables(tables: DecoderTables
 # rules so the same stream takes the same strategy in both packages; on the
 # card they are routing thresholds only, not memory limits.
 
-_STATE_BUDGET = 8 << 20
 BS_LANES = 128
 BS_WIN = 16     # blocks per output window of the streamed decode
 

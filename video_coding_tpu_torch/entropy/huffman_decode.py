@@ -690,10 +690,11 @@ def decode_padded(how: str, segbytes: torch.Tensor, seg_blocks: torch.Tensor,
                   n_components: int,
                   luts: torch.Tensor | None = None) -> torch.Tensor:
     """A padded (S, L) lane matrix → (S, B, 64) coefficients by strategy:
-    ``"auto"`` (``auto_strategy``: K1, K6 or K5 by shape), ``"pallas_t"``
-    (K1 over the rows), ``"pallas"`` (K5), or a plain loop, for an
-    explicit choice only: ``"range"`` and ``"lut"`` (which reads the
-    expanded tables ``luts``)."""
+    ``"pallas_t"`` (K1 over the rows), ``"streamed"`` (K6), ``"pallas"``
+    (K5), ``"auto"`` (``auto_strategy``'s choice of those by shape; the
+    decoder session resolves it before the call, in its route), or a
+    plain loop, for an explicit choice only: ``"range"`` and ``"lut"``
+    (which reads the expanded tables ``luts``)."""
     B = blocks_per_segment
     if how == "lut":
         return decode_segments_lut_plain(segbytes, seg_blocks, comp_sched,

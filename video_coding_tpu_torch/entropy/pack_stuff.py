@@ -30,6 +30,7 @@ import torch
 from .. import kernels
 from .huffman_encode import _Sink, m_out_for
 from .symbols import SLOTS_PER_BLOCK, append_pad_slot, segment_slots
+from .tables import _STATE_BUDGET
 
 MAX_SLOT_BITS = 59
 
@@ -39,7 +40,6 @@ MAX_SLOT_BITS = 59
 # to the split form (symbols + K8); max_lane_chunk is the reference's lane
 # chunk for a packer state budget of 8 MiB (0 when even 8 lanes don't fit).
 FUSED_MAX_BLOCKS = 32
-_STATE_BUDGET = 8 << 20
 
 
 def max_lane_chunk(blocks_per_segment: int, max_seg_bytes: int) -> int:

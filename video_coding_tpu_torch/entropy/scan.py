@@ -667,7 +667,9 @@ def pool_map(fn, items: list) -> list:
     pool's threads. The pool, min(8, cores) threads made at first use
     (anew in a forked child), is shared by every dispatch in flight, so
     two never run more engine threads than that. The engine's ctypes
-    calls drop the interpreter lock, so the items run in parallel."""
+    calls drop the interpreter lock, so the items run in parallel. An
+    item must not call ``pool_map`` itself: it would wait for threads of
+    the pool that it holds."""
     global _pool, _pool_pid
     if len(items) == 1:
         return [fn(items[0])]
@@ -771,14 +773,15 @@ def _pipelined_map(fn, items, depth: int):
     device work and downloads of item i. Each item's wait for a worker,
     from its submission to its start, is a ``pipeline.queue`` span
     (``dispatch``: its place in ``items``) that opens a dispatch: the
-    spans ``fn`` opens on the worker are its children."""
-    import concurrent.futures
+    spans ``fn`` opens on the worker are its children. The workers are a
+    pool of this iterator's own, not the standing one: each runs a whole
+    dispatch that calls ``pool_map`` itself, and items of the standing
+    pool must not (see ``pool_map``)."""
     from collections import deque
 
     it = enumerate(items)
     sentinel = object()
-    with concurrent.futures.ThreadPoolExecutor(
-            max_workers=max(1, depth)) as pool:
+    with ThreadPoolExecutor(max_workers=max(1, depth)) as pool:
 
         def submit(x):
             i, item = x

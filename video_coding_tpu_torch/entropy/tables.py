@@ -20,6 +20,11 @@ import numpy as np
 
 from ..model.huffman import Lut, Spec, encoder_ac_table, encoder_dc_table
 
+# The reference sizes its decode and pack kernels' per-step state against
+# one on-chip memory budget; the port's routing rules (decode_tables,
+# pack_stuff) keep the same integer arithmetic against it.
+_STATE_BUDGET = 8 << 20
+
 
 @dataclasses.dataclass
 class DecoderTables:

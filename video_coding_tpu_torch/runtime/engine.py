@@ -35,6 +35,7 @@ from __future__ import annotations
 import functools
 import logging
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,8 +47,8 @@ from ..common.plane import Plane
 from ..device import resolve_device
 from ..entropy.assemble import assemble_frames
 from ..entropy import gather_pack, huffman_decode, pack_stuff
-from ..entropy.decode_tables import (auto_strategy, expand_luts,
-                                     flat_words_route, range_tables)
+from ..entropy.decode_tables import (expand_luts, flat_words_route,
+                                     range_tables)
 from ..entropy.huffman_encode import (device_encoder_tables, encode_segments,
                                       m_out_for)
 from ..entropy import scan as entropy_scan
@@ -139,6 +140,86 @@ def _lane_bucket(max_len: int, floor_log2: int) -> int:
     """Power-of-two lane length with >= 4 guard bytes past the longest
     lane."""
     return 1 << max(floor_log2, (max_len + 4 - 1).bit_length())
+
+
+def _lane_order(lens64: np.ndarray):
+    """Length-sorted lane order (long segments share warps, so short ones
+    do not idle behind them) and its inverse: inv_perm[g] is segment g's
+    lane."""
+    order = np.argsort(-lens64, kind="stable")
+    inv_perm = np.empty(len(lens64), np.int32)
+    inv_perm[order] = np.arange(len(lens64), dtype=np.int32)
+    return order, inv_perm
+
+
+class _LanePlan(NamedTuple):
+    """A dispatch's Huffman lanes in lane order (``_lane_plan``): each
+    lane's int32 start in the flat buffer, bytes and blocks, and on the
+    indexed route its start state (the first bit in its first byte, its
+    (C,) DC predictors; else None). ``order`` lists the stream-order lanes
+    in lane order, ``inv_perm`` is its inverse, ``L`` the lane bucket and
+    ``lane_bytes`` the bytes of every lane."""
+    starts: np.ndarray
+    lens: np.ndarray
+    blocks: np.ndarray
+    bitpos: np.ndarray | None
+    dc: np.ndarray | None
+    order: np.ndarray
+    inv_perm: np.ndarray
+    L: int
+    lane_bytes: int
+
+
+def _lane_plan(starts64: np.ndarray, lens64: np.ndarray,
+               blocks: np.ndarray, bitpos: np.ndarray | None = None,
+               dc: np.ndarray | None = None, *, matrix: bool = False,
+               multiple: int = 1) -> _LanePlan:
+    """The lane plan of a dispatch's lanes in stream order: int64 starts
+    into the flat buffer and lengths, int32 blocks a lane and (indexed
+    route) start state. Lanes that the kernel reads from the flat buffer
+    are checked under 2 GiB and bucketed from 2^6 bytes; ``matrix`` lanes
+    go up host-packed (``pack_lanes_sorted`` by ``order``), bucketed from
+    2^5. ``multiple`` pads with zero-length lanes, which decode nothing
+    and sort last, from where the last lane ends to a multiple of it."""
+    end = int(starts64[-1] + lens64[-1])
+    if not matrix:
+        _check_flat_bytes(end)
+    pad = -len(lens64) % multiple
+    if pad:
+        starts64 = np.pad(starts64, (0, pad), constant_values=end)
+        lens64, blocks = np.pad(lens64, (0, pad)), np.pad(blocks, (0, pad))
+    order, inv_perm = _lane_order(lens64)
+    lens = lens64.astype(np.int32)[order]
+    return _LanePlan(starts64.astype(np.int32)[order], lens, blocks[order],
+                     None if bitpos is None else bitpos[order],
+                     None if dc is None else dc[order], order, inv_perm,
+                     # the longest lane comes first
+                     _lane_bucket(int(lens[0]), 5 if matrix else 6),
+                     int(lens.sum(dtype=np.int64)))
+
+
+def _huffman_route(S: int, L: int, B: int, arrive: str, device_huffman: str,
+                   decode_gather: str) -> str:
+    """The Huffman route of S lanes of at most L bytes and B blocks that
+    arrive as ``"flat"`` (the flat buffer), ``"matrix"`` (a host-packed
+    (S, L) matrix) or ``"indexed"`` (the flat buffer and a start state a
+    lane). Indexed lanes, and flat ones that ``flat_words_route`` takes,
+    are read from the flat buffer by K1 (``"flat"``) or, with
+    ``decode_gather="dma"``, K7 (``"staged"``). Every other route reads
+    the (S, L) matrix: ``device_huffman``, and under ``"auto"``
+    ``auto_strategy``'s choice of ``"pallas_t"``, ``"streamed"`` or
+    ``"pallas"``."""
+    if arrive == "indexed" or (arrive == "flat" and flat_words_route(
+            S, L, B, device_huffman)):
+        return "staged" if decode_gather == "dma" else "flat"
+    if device_huffman == "auto":
+        return huffman_decode.auto_strategy(S, L, B)
+    return device_huffman
+
+
+# the wrapper (in ``huffman_decode``, looked up at each launch) of each
+# route that reads the flat buffer; the others go to ``decode_padded``
+_FLAT_WRAPPERS = {"flat": "decode_flat", "staged": "decode_flat_staged"}
 
 
 class JpegDecoderSession:
@@ -325,8 +406,12 @@ class JpegDecoderSession:
             "longer than the frame) too small for the indexed route: one "
             "lane, serial — bit-exact but slow")
 
-    def _expected_seg_blocks(self, S: int) -> np.ndarray:
-        B = self.blocks_per_segment
+    def _expected_seg_blocks(self, S: int, B: int | None = None
+                             ) -> np.ndarray:
+        """Blocks in each of a frame's S lanes of B blocks (None: its
+        restart segments), the last one short; DecodeError unless S lanes
+        of B cover the frame."""
+        B = B or self.blocks_per_segment
         n_seg_expected = (self.n_blocks + B - 1) // B
         if S != n_seg_expected:
             raise DecodeError(
@@ -336,92 +421,14 @@ class JpegDecoderSession:
             seg_blocks[-1] = self.n_blocks % B
         return seg_blocks
 
-    # -- host lane prep -----------------------------------------------------
-    @staticmethod
-    def _use_padded_lanes(batched: bool = False) -> bool:
-        """Host-packed (S, L) lane matrix, or flat buffer + lane offsets?
-        A single-frame dispatch uploads pre-packed lanes; a batch uploads
-        the flat buffer, about half the bytes."""
-        return not batched
-
-    @staticmethod
-    def _lane_order(lens64: np.ndarray):
-        """Length-sorted lane order (long segments share warps, so short
-        ones do not idle behind them) and its inverse: inv_perm[g] is
-        segment g's lane."""
-        order = np.argsort(-lens64, kind="stable")
-        inv_perm = np.empty(len(lens64), np.int32)
-        inv_perm[order] = np.arange(len(lens64), dtype=np.int32)
-        return order, inv_perm
-
-    @classmethod
-    def _padded_lane_inputs(cls, flat: np.ndarray, lens64: np.ndarray,
-                            seg_blocks: np.ndarray,
-                            starts64: np.ndarray | None = None):
-        """Host prep for the padded-lane decode: segments packed into a
-        (S, L) zero-padded matrix in length-sorted order, segment s from
-        ``starts64[s]`` in ``flat`` (None: end to end from 0). Returns
-        (lanebuf (S, L), lens, seg_blocks, inv_perm, L) with the per-lane
-        arrays in sorted order."""
-        order, inv_perm = cls._lane_order(lens64)
-        L = _lane_bucket(int(lens64.max()), 5)
-        lanebuf = pack_lanes_sorted(flat, lens64, order, L, starts=starts64)
-        return (lanebuf, lens64.astype(np.int32)[order], seg_blocks[order],
-                inv_perm, L)
-
-    @classmethod
-    def _flat_lane_inputs(cls, lens64: np.ndarray, seg_blocks: np.ndarray,
-                          starts64: np.ndarray | None = None):
-        """Host prep for the flat-buffer decode: per-segment offsets into
-        the flat buffer in length-sorted lane order, ``starts64`` (None:
-        the segments end to end from 0, checked under 2 GiB; a caller
-        that passes them checks its buffer). Returns (starts, lens,
-        seg_blocks, inv_perm) with the per-lane arrays in sorted order."""
-        lens = lens64.astype(np.int32)
-        if starts64 is None:
-            _check_flat_bytes(int(lens64.sum()))
-            starts = np.zeros(len(lens64), np.int32)
-            np.cumsum(lens[:-1], out=starts[1:])
-        else:
-            starts = starts64.astype(np.int32)
-        order, inv_perm = cls._lane_order(lens64)
-        return starts[order], lens[order], seg_blocks[order], inv_perm
-
-    # -- Huffman decode strategies ------------------------------------------
-    def _decode_segments(self, segbytes: torch.Tensor,
-                         seg_blocks: torch.Tensor) -> torch.Tensor:
-        """Padded (S, L) lane matrix → (S, B, 64) coefficients by the
-        session's strategy."""
-        st = self.state
-        return huffman_decode.decode_padded(
-            self.device_huffman, segbytes, seg_blocks, self._comp_sched,
-            st.lo, st.hi, st.offset, st.values,
-            blocks_per_segment=self.blocks_per_segment,
-            n_components=len(self.components), luts=st.luts)
-
-    def _decode_flat_lanes(self, flat, starts, lens, seg_blocks, seg_div: int,
-                           init_bitpos=None, init_dc=None):
-        """Lanes of the flat buffer → (S, seg_div, 64) coefficients through
-        K1, or K7 with ``decode_gather='dma'``."""
-        st = self.state
-        args = (flat, starts, lens, seg_blocks, self._seg_view(seg_div)[0],
-                st.lo, st.hi, st.offset, st.values)
-        kw = dict(blocks_per_segment=seg_div,
-                  n_components=len(self.components),
-                  init_bitpos=init_bitpos, init_dc=init_dc)
-        if self.decode_gather == "dma":
-            return huffman_decode.decode_flat_staged(*args, **kw)
-        return huffman_decode.decode_flat(*args, **kw)
-
-    def _padded_route(self, S: int, L: int) -> str:
-        """The strategy ``decode_padded`` takes for S lanes of L bytes."""
-        how = self.device_huffman
-        return auto_strategy(S, L, self.blocks_per_segment) \
-            if how == "auto" else how
-
-    def _flat_route(self) -> str:
-        """The kernel ``_decode_flat_lanes`` takes: K7 or K1."""
-        return "staged" if self.decode_gather == "dma" else "flat"
+    # -- lane plan, route and launch of the Huffman decode ------------------
+    def _segment_plan(self, d, **kw) -> _LanePlan:
+        """The lane plan of a destuffed dispatch (``scan.Destuffed``) of
+        restart-segmented streams: a lane a segment (``_lane_plan``'s
+        keywords)."""
+        return _lane_plan(d.starts.reshape(-1), d.lens.reshape(-1),
+                          np.tile(self._expected_seg_blocks(self.n_segments),
+                                  len(d.lens)), **kw)
 
     @staticmethod
     def _gather_lanes(flat, starts, lens, L: int) -> torch.Tensor:
@@ -433,71 +440,55 @@ class JpegDecoderSession:
         return torch.where(cols < lens[:, None], flat[idx],
                            flat.new_zeros(())).contiguous()
 
-    def _decode_coefs_pool(self, d, run: tuple[int, int] | None = None):
-        """A destuffed dispatch (``scan.Destuffed``) → ((S', B, 64)
+    def _launch(self, plan: _LanePlan, buf: np.ndarray, B: int):
+        """The Huffman decode of a plan's lanes of B blocks from ``buf``,
+        the flat buffer or the host-packed (S, L) matrix: the uploads of
+        what the lanes arrive as, the routed wrapper under
+        ``decode.launch`` (stage ``huffman``, ``route``), then the upload
+        of inv_perm. Returns ((S, B, 64) coefficients in lane order,
+        inv_perm int64)."""
+        up = functools.partial(_upload, device=self.device)
+        arrive = ("matrix" if buf.ndim == 2 else
+                  "flat" if plan.bitpos is None else "indexed")
+        bp0 = dc0 = None
+        if arrive == "matrix":
+            lanes, segb = up(buf), up(plan.blocks)
+        elif arrive == "flat":
+            flat, starts, lens, segb = map(up, (buf, *plan[:3]))
+        else:           # the lane arrays go up before the flat buffer
+            starts, lens, segb, bp0, dc0 = map(up, plan[:5])
+            flat = up(buf)
+        route = _huffman_route(len(plan.lens), plan.L, B, arrive,
+                               self.device_huffman, self.decode_gather)
+        st = self.state
+        tabs = (self._seg_view(B)[0], st.lo, st.hi, st.offset, st.values)
+        kw = dict(blocks_per_segment=B, n_components=len(self.components))
+        with trace.span("decode.launch", stage="huffman", route=route):
+            if route in _FLAT_WRAPPERS:
+                coefs = getattr(huffman_decode, _FLAT_WRAPPERS[route])(
+                    flat, starts, lens, segb, *tabs, init_bitpos=bp0,
+                    init_dc=dc0, **kw)
+            else:
+                if arrive == "flat":
+                    lanes = self._gather_lanes(flat, starts, lens, plan.L)
+                coefs = huffman_decode.decode_padded(
+                    route, lanes, segb, *tabs, luts=st.luts, **kw)
+        return coefs, up(plan.inv_perm).to(torch.int64)
+
+    def _decode_coefs_pool(self, d):
+        """A destuffed dispatch (``scan.Destuffed``) → ((S, B, 64)
         coefficients in lane order, inv_perm (S,) int64) on the device, S
-        = F·n_segments. ``run`` = (n, r) pads the length-sorted lanes with
-        zero-length lanes (which decode nothing and sort last) to a
-        multiple of n and decodes only the r-th of n contiguous runs of
-        them, uploading that run's segment bytes only; inv_perm then
-        indexes the lanes of all n runs in order. None decodes every
-        lane."""
-        F = len(d.lens)
-        dev = self.device
-        B = self.blocks_per_segment
+        = F·n_segments. A single frame uploads its lanes host-packed, a
+        batch the flat buffer (about half the bytes)."""
         with trace.span("decode.lane_prep"):
-            lens64 = d.lens.reshape(-1)
-            starts64 = d.starts.reshape(-1)
-            seg_blocks = np.tile(self._expected_seg_blocks(self.n_segments),
-                                 F)
-            padded = run is None and self._use_padded_lanes(batched=F > 1)
-            if padded:
-                lanebuf, lens, segb, inv_perm, L = self._padded_lane_inputs(
-                    d.flat, lens64, seg_blocks, starts64)
-            else:
-                n, r = run or (1, 0)
-                S = len(lens64)
-                pad = -S % n
-                end = int(starts64[-1] + lens64[-1])
-                _check_flat_bytes(end)
-                # the padding lanes start where the last frame ends
-                starts, lens, segb, inv_perm = self._flat_lane_inputs(
-                    np.pad(lens64, (0, pad)), np.pad(seg_blocks, (0, pad)),
-                    np.pad(starts64, (0, pad), constant_values=end))
-                flat = d.flat
-                if n > 1:
-                    step = len(lens) // n
-                    starts, lens, segb = (a[r * step:(r + 1) * step]
-                                          for a in (starts, lens, segb))
-                    # this run's segments' bytes only, in stream order
-                    by = np.argsort(starts, kind="stable")
-                    packed = np.empty_like(starts)
-                    packed[by] = np.cumsum(lens[by]) - lens[by]
-                    idx = (np.repeat(starts[by] - packed[by], lens[by])
-                           + np.arange(int(lens.sum())))
-                    flat = np.zeros(flat_size(len(idx)), np.uint8)
-                    np.take(d.flat, idx, out=flat[:len(idx)])
-                    starts = packed
-                L = _lane_bucket(int(lens.max()), 6)
-            trace.attrs(lanes=len(lens), lane_len=L,
-                        lane_bytes=int(lens.sum(dtype=np.int64)))
-        if padded:
-            lanebuf, segb = _upload(lanebuf, dev), _upload(segb, dev)
-            with trace.span("decode.launch", stage="huffman",
-                            route=self._padded_route(len(lens), L)):
-                coefs = self._decode_segments(lanebuf, segb)
-            return coefs, _upload(inv_perm, dev).to(torch.int64)
-        flat, starts, lens, segb = (_upload(a, dev) for a in (
-            flat, starts, lens, segb))
-        with trace.span("decode.launch", stage="huffman"):
-            if flat_words_route(len(lens), L, B, self.device_huffman):
-                trace.attrs(route=self._flat_route())
-                coefs = self._decode_flat_lanes(flat, starts, lens, segb, B)
-            else:
-                trace.attrs(route=self._padded_route(len(lens), L))
-                coefs = self._decode_segments(
-                    self._gather_lanes(flat, starts, lens, L), segb)
-        return coefs, _upload(inv_perm[:S], dev).to(torch.int64)
+            matrix = len(d.lens) == 1
+            plan = self._segment_plan(d, matrix=matrix)
+            buf = (pack_lanes_sorted(d.flat, d.lens.reshape(-1), plan.order,
+                                     plan.L, starts=d.starts.reshape(-1))
+                   if matrix else d.flat)
+            trace.attrs(lanes=len(plan.lens), lane_len=plan.L,
+                        lane_bytes=plan.lane_bytes)
+        return self._launch(plan, buf, self.blocks_per_segment)
 
     def _decode_device_batch_indexed(self, d):
         """Indexed decode of a destuffed dispatch of restart-free streams
@@ -526,43 +517,25 @@ class JpegDecoderSession:
         if any(i is None for i in idxs):
             return None
         with trace.span("decode.lane_prep"):
-            F = len(flats)
+            bo = np.stack([i[0] for i in idxs])     # (F, R) start bits
+            s64 = bo >> 3
+            ends = np.empty_like(bo)
+            # a lane's last byte may hold the next lane's first bits: its
+            # block count ends it, not its length
+            ends[:, :-1] = (bo[:, 1:] + 7) >> 3
+            ends[:, -1] = d.lens[:, 0]
             C = len(self.components)
-            R = (self.n_blocks + stride - 1) // stride
-            starts_l, lens_l, bp0_l, dc0_l = [], [], [], []
-            for base, fl, (bo, dp) in zip(bases, flats, idxs):
-                s64 = bo >> 3
-                ends = np.empty(R, np.int64)
-                # a lane's last byte may hold the next lane's first bits:
-                # its block count ends it, not its length
-                ends[:-1] = (bo[1:] + 7) >> 3
-                ends[-1] = len(fl)
-                starts_l.append(s64 + base)
-                lens_l.append(ends - s64)
-                bp0_l.append((bo - 8 * s64).astype(np.int32))
-                dc0_l.append(dp[:, :C].astype(np.int32))
-            _check_flat_bytes(bases[-1] + len(flats[-1]))
-            lens64 = np.concatenate(lens_l)
-            seg_blocks = np.full(R, stride, dtype=np.int32)
-            if self.n_blocks % stride:
-                seg_blocks[-1] = self.n_blocks % stride
-            order, inv_perm = self._lane_order(lens64)
-            lanes = [np.concatenate(starts_l).astype(np.int32),
-                     lens64.astype(np.int32), np.tile(seg_blocks, F),
-                     np.concatenate(bp0_l), np.concatenate(dc0_l)]
-            lanes = [a[order] for a in lanes]
+            plan = _lane_plan(
+                (s64 + d.bases[:, None]).ravel(), (ends - s64).ravel(),
+                np.tile(self._expected_seg_blocks(bo.shape[1], stride),
+                        len(bo)), (bo - 8 * s64).astype(np.int32).ravel(),
+                np.concatenate([dp[:, :C] for _, dp in idxs]).astype(
+                    np.int32))
             # K1 reads the lanes from the flat buffer: no lane matrix
-            trace.attrs(lanes=len(lens64), lane_bytes=int(lens64.sum()))
-        dev = self.device
-        starts, lens, segb, bp0, dc0 = (_upload(a, dev) for a in lanes)
-        flat = _upload(d.flat, dev)
-        with trace.span("decode.launch", stage="huffman",
-                        route=self._flat_route()):
-            coefs = self._decode_flat_lanes(flat, starts, lens, segb, stride,
-                                            bp0, dc0)
-        return self._decode_tail_pool(
-            coefs.view(-1, 64), _upload(inv_perm, dev).to(torch.int64), F,
-            stride)
+            trace.attrs(lanes=len(plan.lens), lane_bytes=plan.lane_bytes)
+        coefs, inv_perm = self._launch(plan, d.flat, stride)
+        return self._decode_tail_pool(coefs.view(-1, 64), inv_perm,
+                                      len(bo), stride)
 
     def _decode_tail_pool(self, coefs_pool: torch.Tensor,
                           inv_perm: torch.Tensor, f: int,
@@ -621,13 +594,13 @@ class JpegDecoderSession:
     def _decode_mesh(self, entropy_list: list[bytes], frame_sharded: bool):
         """The mesh-sharded batch decode (class docstring): this rank
         decodes its contiguous run of the length-sorted lanes
-        (``_decode_coefs_pool``), then K2; the pixels are gathered from
+        (``_mesh_run``), then K2; the pixels are gathered from
         every rank and the planes assembled (this rank's frames only, as
         a DTensor, when ``frame_sharded`` and the mesh size divides F)."""
         mesh, B = self.mesh, self.blocks_per_segment
         n, r, F = mesh.size(), mesh_index(mesh), len(entropy_list)
-        coefs, ip = self._decode_coefs_pool(
-            destuff_dispatch(entropy_list, self.n_segments), run=(n, r))
+        coefs, ip = self._launch(*self._mesh_run(
+            destuff_dispatch(entropy_list, self.n_segments), n, r), B)
         with trace.span("decode.launch", stage="tail"):
             pixels = datapath.decode_datapath(coefs.view(-1, 64),
                                               self._quant_seg)
@@ -641,6 +614,35 @@ class JpegDecoderSession:
                              for p in self._assemble_planes(
                                  every, ip[r * k:(r + 1) * k], B))
             return self._assemble_planes(every, ip, B)
+
+    def _mesh_run(self, d, n: int, r: int):
+        """This rank's lanes of a destuffed dispatch on a mesh of n: the
+        lane plan padded with zero-length lanes to a multiple of n, cut to
+        the r-th of n contiguous runs, with L that run's own, and a flat
+        buffer of that run's segment bytes only, in stream order (the
+        dispatch's own on a mesh of one). Its inv_perm indexes the lanes
+        of all n runs in order. Returns (plan, flat)."""
+        with trace.span("decode.lane_prep"):
+            plan, flat = self._segment_plan(d, multiple=n), d.flat
+            if n > 1:
+                step = len(plan.lens) // n
+                starts, lens, segb = (a[r * step:(r + 1) * step]
+                                      for a in plan[:3])
+                by = np.argsort(starts, kind="stable")
+                packed = np.empty_like(starts)
+                packed[by] = np.cumsum(lens[by]) - lens[by]
+                idx = (np.repeat(starts[by] - packed[by], lens[by])
+                       + np.arange(int(lens.sum())))
+                flat = np.zeros(flat_size(len(idx)), np.uint8)
+                np.take(d.flat, idx, out=flat[:len(idx)])
+                plan = plan._replace(
+                    starts=packed, lens=lens, blocks=segb,
+                    inv_perm=plan.inv_perm[:d.lens.size],
+                    L=_lane_bucket(int(lens.max()), 6),
+                    lane_bytes=int(lens.sum(dtype=np.int64)))
+            trace.attrs(lanes=len(plan.lens), lane_len=plan.L,
+                        lane_bytes=plan.lane_bytes)
+        return plan, flat
 
     def decode_device_batch(self, entropy_list: list[bytes]):
         """Like decode_device_batch_stacked, as a list of per-frame plane
@@ -772,13 +774,14 @@ class JpegDecoderSession:
         strategy, brought back to stream order and downloaded."""
         self._check_device_entropy_route()
         flat, lens64 = destuff_flat(entropy_data)
-        lanebuf, _lens, segb, inv_perm, _L = self._padded_lane_inputs(
-            flat, lens64, self._expected_seg_blocks(len(lens64)))
-        dev = self.device
-        coefs = self._decode_segments(_upload(lanebuf, dev),
-                                      _upload(segb, dev))
-        coefs = coefs[_upload(inv_perm, dev).to(torch.int64)]
-        return coefs.view(-1, 64)[:self.n_blocks].cpu().numpy()
+        starts64 = np.zeros_like(lens64)
+        np.cumsum(lens64[:-1], out=starts64[1:])
+        plan = _lane_plan(starts64, lens64,
+                          self._expected_seg_blocks(len(lens64)), matrix=True)
+        coefs, inv_perm = self._launch(
+            plan, pack_lanes_sorted(flat, lens64, plan.order, plan.L,
+                                    starts=starts64), self.blocks_per_segment)
+        return coefs[inv_perm].view(-1, 64)[:self.n_blocks].cpu().numpy()
 
     @staticmethod
     def _pack_upload(coefs: np.ndarray):
@@ -818,12 +821,9 @@ class JpegDecoderSession:
 
     def decode_batch(self, entropy_list: list[bytes]) -> list:
         """Decode many same-geometry frames: the entropy decode of each on
-        worker threads, then one upload and one K2 launch for all."""
-        import concurrent.futures
-
-        with concurrent.futures.ThreadPoolExecutor(
-                max_workers=min(8, len(entropy_list))) as pool:
-            coefs = list(pool.map(self.decode_entropy, entropy_list))
+        the standing pool (``scan.pool_map``), then one upload and one K2
+        launch for all."""
+        coefs = pool_map(self.decode_entropy, entropy_list)
         f = len(entropy_list)
         planes = self._decode_coefs_host(np.concatenate(coefs), f)
         return [self._to_frame([p[i] for p in planes]) for i in range(f)]
@@ -1306,17 +1306,14 @@ class JpegEncoderSession:
 
     def _entropy_frames(self, q_batch: np.ndarray) -> list[bytes]:
         """(f, n_blocks, 64) host coefficients → f JPEG streams, the
-        entropy coder of ``self.entropy`` per frame on worker threads."""
-        import concurrent.futures
-
-        with concurrent.futures.ThreadPoolExecutor(
-                max_workers=min(8, len(q_batch))) as pool:
-            return list(pool.map(self._entropy_frame, q_batch))
+        entropy coder of ``self.entropy`` per frame on the standing pool
+        (``scan.pool_map``)."""
+        return pool_map(self._entropy_frame, q_batch)
 
     def encode_batch(self, frames: list) -> list[bytes]:
         """Encode many frames: one batched device call for the block
         numerics and one download, then the entropy coder per frame on
-        worker threads."""
+        the standing pool."""
         return self._entropy_frames(
             self._quantize_stacked(self._stack_frames(frames)))
 
